@@ -1,0 +1,436 @@
+"""Supervised backend dispatch — circuit breakers over every device crossing.
+
+Port of the reference's ops/dispatch.py; the breakers, backoff, fault
+sites and supervised call/enqueue forms are unchanged. Every consensus-
+relevant device call funnels through a per-subsystem circuit breaker:
+bounded retries with jittered backoff absorb transient device errors; the
+breaker opens after N consecutive hard failures and routes traffic to the
+reference CPU engine; probabilistic half-open probes re-test the device.
+The ecdsa site's known-answer lanes and reject-side host confirmation
+live in ops/ecdsa_batch (BatchHandle).
+
+What this slice of the port leaves out: ``merkle_root`` computes on the
+host at every leaf count (the device Merkle reduction, K2 in
+ops/merkle.py of the reference, is a later slice), and the miner nonce
+sweeps (``supervised_sweep`` / ``supervised_resident_sweep``) come with
+the mining slice.
+
+Env knobs (read at configure time):
+    BCP_BREAKER_THRESHOLD  consecutive failures to open (default 3)
+    BCP_BREAKER_COOLDOWN   seconds open before probes start (default 5)
+    BCP_BREAKER_PROBE      half-open probe probability (default 0.25)
+    BCP_BREAKER_RETRIES    in-call retries before a failure counts (def. 1)
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import threading
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+from ..util import devicewatch as dw
+from ..util import telemetry as tm
+from ..util.faults import INJECTOR, Backoff, PoisonedOutput, retry_call
+from ..util.log import log_print, log_printf
+
+CLOSED, OPEN, HALF_OPEN = "closed", "open", "half-open"
+
+# -- telemetry families (util/telemetry): per-subsystem dispatch latency
+# split by the path that served the call, retry/fallback tallies, and a
+# breaker-state collector projecting the live registry at scrape time.
+_LAT = tm.histogram(
+    "bcp_dispatch_latency_seconds",
+    "Supervised backend-crossing latency per subsystem and serving path "
+    "(device = the accelerator served it, cpu = breaker/failure fallback, "
+    "settle = async handle materialization)",
+    labels=("site", "path"))
+_RETRIES = tm.counter(
+    "bcp_dispatch_retries_total",
+    "Same-call device retries absorbed by supervised dispatch",
+    labels=("site",))
+_FALLBACKS = tm.counter(
+    "bcp_dispatch_fallback_total",
+    "Calls served by the CPU engine because the device path was open or "
+    "failed", labels=("site",))
+
+_BREAKER_STATE_NUM = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
+
+
+def _collect_breakers():
+    """Registry collector: breaker state (0 closed / 1 half-open / 2 open)
+    and the trip/probe/fallback tallies, one sample per subsystem."""
+    snaps = snapshot()
+    if not snaps:
+        return []
+    state = {"name": "bcp_breaker_state", "type": "gauge",
+             "help": "Circuit-breaker state per subsystem "
+                     "(0=closed 1=half-open 2=open)",
+             "samples": []}
+    out = [state]
+    for field, help_ in (
+        ("trips", "Times the breaker opened"),
+        ("probes", "Half-open probes attempted"),
+        ("recoveries", "Probes that closed the breaker"),
+        ("fallback_calls", "Calls routed to the CPU engine"),
+        ("fallback_items", "Items (sigs/hashes/leaves) served on CPU"),
+    ):
+        fam = {"name": f"bcp_breaker_{field}_total", "type": "counter",
+               "help": help_, "samples": []}
+        for name, snap in snaps.items():
+            fam["samples"].append(({"subsystem": name}, snap[field]))
+        out.append(fam)
+    for name, snap in snaps.items():
+        state["samples"].append(
+            ({"subsystem": name}, _BREAKER_STATE_NUM[snap["state"]]))
+    return out
+
+
+tm.register_collector("dispatch_breakers", _collect_breakers)
+
+
+@dataclass
+class BreakerConfig:
+    threshold: int = 3       # consecutive failures -> open
+    cooldown: float = 5.0    # seconds open before probes may fire
+    probe: float = 0.25      # half-open probe probability per allow()
+    retries: int = 1         # same-call retries before a failure counts
+    backoff_base: float = 0.02  # first retry delay (jittered, doubling)
+    seed: Optional[int] = None  # probe rng seed (tests)
+
+    @classmethod
+    def from_env(cls) -> "BreakerConfig":
+        g = os.environ.get
+        return cls(
+            threshold=int(g("BCP_BREAKER_THRESHOLD", "3")),
+            cooldown=float(g("BCP_BREAKER_COOLDOWN", "5")),
+            probe=float(g("BCP_BREAKER_PROBE", "0.25")),
+            retries=int(g("BCP_BREAKER_RETRIES", "1")),
+        )
+
+
+class CircuitBreaker:
+    """Per-subsystem failure gate (closed -> open -> half-open -> closed).
+
+    ``allow()`` answers "may this call try the device?"; callers then report
+    record_success()/record_failure(). While OPEN, allow() flips to a
+    HALF_OPEN probe with probability cfg.probe once the cooldown elapsed —
+    probabilistic probing keeps a recovering device from being stampeded by
+    every pending caller at once. Thread-safe: RPC threads and the P2P loop
+    read state while the validation thread dispatches."""
+
+    def __init__(self, name: str, cfg: Optional[BreakerConfig] = None,
+                 clock=time.monotonic):
+        self.name = name
+        self.cfg = cfg if cfg is not None else BreakerConfig.from_env()
+        self._clock = clock
+        self._rng = random.Random(self.cfg.seed)
+        self._lock = threading.Lock()
+        self.state = CLOSED
+        self.consecutive_failures = 0
+        self.trips = 0            # times the breaker opened
+        self.opened_at = 0.0
+        self.probes = 0           # half-open probes attempted
+        self.recoveries = 0       # probes that closed the breaker
+        self.fallback_calls = 0   # calls routed to the CPU engine
+        self.fallback_items = 0   # items (sigs/hashes/leaves) in those calls
+        self.last_error = ""
+
+    def allow(self) -> bool:
+        with self._lock:
+            if self.state == CLOSED:
+                return True
+            if self.state == OPEN:
+                if (self._clock() - self.opened_at >= self.cfg.cooldown
+                        and self._rng.random() < self.cfg.probe):
+                    self.state = HALF_OPEN
+                    self.probes += 1
+                    return True
+                return False
+            # HALF_OPEN: one probe in flight; everyone else stays on CPU
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            if self.state == HALF_OPEN:
+                self.recoveries += 1
+                log_printf("breaker %s: half-open probe succeeded — closed",
+                           self.name)
+            self.state = CLOSED
+            self.consecutive_failures = 0
+
+    def record_failure(self, err: Optional[BaseException] = None) -> None:
+        with self._lock:
+            self.consecutive_failures += 1
+            if err is not None:
+                self.last_error = f"{type(err).__name__}: {err}"[:200]
+            if self.state == HALF_OPEN or (
+                self.state == CLOSED
+                and self.consecutive_failures >= self.cfg.threshold
+            ):
+                reopened = self.state == HALF_OPEN
+                self.state = OPEN
+                self.opened_at = self._clock()
+                self.trips += 1
+                log_printf(
+                    "breaker %s: %s after %d consecutive failure(s) (%s)",
+                    self.name, "re-opened" if reopened else "OPEN",
+                    self.consecutive_failures, self.last_error)
+
+    def note_fallback(self, items: int = 1) -> None:
+        with self._lock:
+            self.fallback_calls += 1
+            self.fallback_items += max(0, int(items))
+        _FALLBACKS.labels(site=self.name).inc()
+
+    def healthy(self) -> bool:
+        """Read-only probe: is the device path currently trusted? Unlike
+        allow() this never mutates state (no half-open transition), so
+        planners — e.g. the ecdsa cross-block lane packer deciding whether
+        aggregating for full device buckets is worth the latency — can
+        consult it per item without stealing recovery probes."""
+        with self._lock:
+            return self.state == CLOSED
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "state": self.state,
+                "consecutive_failures": self.consecutive_failures,
+                "trips": self.trips,
+                "probes": self.probes,
+                "recoveries": self.recoveries,
+                "fallback_calls": self.fallback_calls,
+                "fallback_items": self.fallback_items,
+                "last_error": self.last_error,
+            }
+
+
+_CONFIG = BreakerConfig.from_env()
+_BREAKERS: dict[str, CircuitBreaker] = {}
+_REG_LOCK = threading.Lock()
+
+
+def breaker(name: str) -> CircuitBreaker:
+    with _REG_LOCK:
+        br = _BREAKERS.get(name)
+        if br is None:
+            br = _BREAKERS[name] = CircuitBreaker(name, cfg=_CONFIG)
+        return br
+
+
+def configure(**kwargs) -> BreakerConfig:
+    """Replace the breaker config (tests: threshold/cooldown/probe/seed)
+    and rebuild the registry so it applies to every subsystem."""
+    global _CONFIG
+    base = BreakerConfig.from_env()
+    for k, v in kwargs.items():
+        setattr(base, k, v)
+    _CONFIG = base
+    with _REG_LOCK:
+        _BREAKERS.clear()
+    return base
+
+
+def reset() -> None:
+    """Drop all breaker state and re-read env config (test isolation)."""
+    global _CONFIG
+    _CONFIG = BreakerConfig.from_env()
+    with _REG_LOCK:
+        _BREAKERS.clear()
+
+
+def snapshot() -> dict:
+    """gettpuinfo's ``breakers`` section: every subsystem that has been
+    touched this process, keyed by name."""
+    with _REG_LOCK:
+        return {name: br.snapshot() for name, br in _BREAKERS.items()}
+
+
+def supervised_call(site: str, device_fn: Callable, cpu_fn: Callable,
+                    validate: Optional[Callable] = None,
+                    poison: Optional[Callable] = None,
+                    items: int = 1):
+    """Run one backend-crossing call under supervision.
+
+    device_fn() is attempted (with cfg.retries same-call retries and
+    jittered backoff between them) unless the breaker is open; its output
+    is passed through ``validate`` (a cheap host-side probe returning
+    truthy on sane output) before it is trusted. Any exception or failed
+    validation after the retries counts one breaker failure and the call
+    is served by cpu_fn() instead. ``poison`` is the fault harness's
+    output-corruption hook (applied when BCP_FAULT_MODE=poison-output is
+    armed for this site) — it exists so tests can prove the validation
+    probe actually gates the verdict path.
+
+    Returns (result, used_device)."""
+    br = breaker(site)
+    if br.allow():
+        calls = [0]
+
+        def attempt():
+            calls[0] += 1
+            INJECTOR.on_call(site)
+            out = device_fn()
+            if poison is not None and INJECTOR.should_poison(site):
+                out = poison(out)
+            if validate is not None and not validate(out):
+                raise PoisonedOutput(
+                    f"{site}: device output failed validation probe")
+            return out
+
+        t0 = time.monotonic()
+        try:
+            with tm.span("dispatch.call", site=site, items=items):
+                out = retry_call(
+                    attempt, attempts=br.cfg.retries + 1,
+                    backoff=Backoff(base=br.cfg.backoff_base, maximum=1.0),
+                )
+            br.record_success()
+            if calls[0] > 1:
+                _RETRIES.labels(site=site).inc(calls[0] - 1)
+            dt = time.monotonic() - t0
+            _LAT.labels(site=site, path="device").observe(dt)
+            # synchronous crossing: the whole device leg (dispatch +
+            # blocking materialization inside device_fn) is one
+            # "execute" phase — async sites split execute/fetch
+            # themselves (util/devicewatch phase vocabulary)
+            dw.note_phase(site, "execute", dt)
+            return out, True
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as e:  # noqa: BLE001 — breaker boundary
+            br.record_failure(e)
+            if calls[0] > 1:
+                _RETRIES.labels(site=site).inc(calls[0] - 1)
+            log_print("tpu", "%s device call failed (%s) — CPU fallback",
+                      site, e)
+    br.note_fallback(items)
+    t0 = time.monotonic()
+    out = cpu_fn()
+    _LAT.labels(site=site, path="cpu").observe(time.monotonic() - t0)
+    return out, False
+
+
+class SupervisedHandle:
+    """An enqueued device computation under breaker supervision — the async
+    counterpart of supervised_call, for any site that wants to overlap
+    host work with device settle (SURVEY.md §3.2 P3). The ECDSA pipeline
+    itself rides its specialized equivalent (ecdsa_batch.BatchHandle,
+    which adds KAT lanes and reject-side host confirmation); this is the
+    GENERIC form for the other subsystems' future async crossings.
+
+    The enqueue runs eagerly (breaker-gated, fault-injected); validation
+    probes, breaker accounting, and the CPU fallback all run at result()
+    time, so an unresolved handle can ride in a pipeline for many host
+    steps without losing supervision. result() is memoized and safe to
+    call from multiple consumers (the first settle pays; the rest read)."""
+
+    __slots__ = ("_site", "_pending", "_cpu_fn", "_validate", "_poison",
+                 "_items", "_result", "_done", "used_device", "_ctx")
+
+    def __init__(self, site, pending, cpu_fn, validate, poison, items,
+                 used_device, ctx=None):
+        self._site = site
+        self._pending = pending      # zero-arg materializer, or None
+        self._cpu_fn = cpu_fn
+        self._validate = validate
+        self._poison = poison
+        self._items = items
+        self._result = None
+        self._done = pending is None
+        self.used_device = used_device
+        # trace-correlation handoff: the enqueue-side span context rides
+        # the handle so the settle span — often on ANOTHER thread — links
+        # back to the dispatching block's correlation chain
+        self._ctx = ctx
+        if self._done:
+            self._result = cpu_fn()  # CPU path is synchronous anyway
+
+    def result(self):
+        if self._done:
+            return self._result
+        br = breaker(self._site)
+        t0 = time.monotonic()
+        try:
+            with tm.span("dispatch.settle", parent=self._ctx,
+                         site=self._site, items=self._items):
+                out = self._pending()
+            if self._poison is not None and INJECTOR.should_poison(self._site):
+                out = self._poison(out)
+            if self._validate is not None and not self._validate(out):
+                raise PoisonedOutput(
+                    f"{self._site}: device output failed validation probe")
+            br.record_success()
+            dt = time.monotonic() - t0
+            _LAT.labels(site=self._site, path="settle").observe(dt)
+            # async crossing: result() blocks on materialization — the
+            # "fetch" phase of the dispatch decomposition
+            dw.note_phase(self._site, "fetch", dt)
+            self._result = out
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as e:  # noqa: BLE001 — breaker boundary
+            br.record_failure(e)
+            br.note_fallback(self._items)
+            log_print("tpu", "%s async settle failed (%s) — CPU fallback",
+                      self._site, e)
+            self._result = self._cpu_fn()
+            self.used_device = False
+        self._pending = None
+        self._done = True
+        return self._result
+
+
+def supervised_enqueue(site: str, enqueue_fn: Callable, cpu_fn: Callable,
+                       validate: Optional[Callable] = None,
+                       poison: Optional[Callable] = None,
+                       items: int = 1) -> SupervisedHandle:
+    """Async supervised dispatch: enqueue_fn() must START the device work
+    and return a zero-arg materializer that blocks until it settles (JAX
+    async dispatch returns array futures, so `lambda: np.asarray(dev_out)`
+    is the usual shape). A breaker-open site, or an enqueue_fn that raises,
+    degrades to a handle whose result() is cpu_fn() — the caller's pipeline
+    shape is preserved either way."""
+    br = breaker(site)
+    if br.allow():
+        try:
+            with tm.span("dispatch.enqueue", site=site, items=items):
+                INJECTOR.on_call(site)
+                pending = enqueue_fn()
+                ctx = tm.trace_context()  # the enqueue span itself
+            return SupervisedHandle(site, pending, cpu_fn, validate, poison,
+                                    items, used_device=True, ctx=ctx)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as e:  # noqa: BLE001 — breaker boundary
+            br.record_failure(e)
+            log_print("tpu", "%s async enqueue failed (%s) — CPU fallback",
+                      site, e)
+    br.note_fallback(items)
+    return SupervisedHandle(site, None, cpu_fn, validate, poison, items,
+                            used_device=False)
+
+
+# ---------------------------------------------------------------------------
+# Subsystem front doors used by validation/
+# ---------------------------------------------------------------------------
+
+def merkle_root(hashes: list, expected: Optional[bytes] = None) -> tuple:
+    """Merkle root and CVE-2012-2459 mutation flag, on the host at every
+    leaf count in this slice of the port (the reference sends 512 leaves
+    or more to its device tree reduction; that leg is a later slice).
+    ``expected`` is the caller's claimed root, kept for the reference's
+    signature."""
+    from ..consensus.merkle import compute_merkle_root
+
+    return compute_merkle_root(hashes)
+
+
+def block_merkle_root(block) -> tuple:
+    """BlockMerkleRoot through the chooser (chainstate's check_block
+    entry)."""
+    return merkle_root([tx.txid for tx in block.vtx],
+                       expected=block.header.hash_merkle_root)
