@@ -5,7 +5,7 @@ one NVIDIA H100 (sm_90a). It keeps the reference's module layout, so each
 module's counterpart is found under the same relative path. It imports
 ``torch`` and numpy, never ``jax``, and nothing of the reference package.
 
-Ported so far (block validation with ``-ecdsakernel=w4``):
+Ported so far (block validation with ``-ecdsakernel=w4``; block mining):
 
 - consensus/, crypto/, script/, store/, validation/, wallet/, util/ and
   native.py: host modules, copied from the reference (the drift test
@@ -18,10 +18,16 @@ Ported so far (block validation with ``-ecdsakernel=w4``):
   plain PyTorch version;
 - ops/ecdsa_batch.py: the w4 rung of the supervised dispatch, the packed
   (native engine) path, BatchHandle, LanePacker;
+- ops/sha256_sweep.py, ops/pallas_sweep.py, ops/miner.py: the SHA-256d
+  nonce sweeps — a hand-written CUDA file (csrc/sha256d_sweep.cu) for the
+  Pallas h7 sweep and the h7 and exact sweep programs, and their plain
+  PyTorch versions;
+- mining/: block assembly and generate_blocks (host copies) and the
+  resident mining loop on a CUDA stream;
 - workload/sigchain.py: the signature-dense regtest chain generator.
 
 Entry points run on ``cuda`` unless the caller selects the CPU device
-(``ops.ecdsa_batch.set_device("cpu")``), as the tests do.
+(``ops.cuda_build.set_device("cpu")``), as the tests do.
 """
 
 __version__ = "0.1.0"

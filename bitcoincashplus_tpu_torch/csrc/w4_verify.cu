@@ -518,6 +518,7 @@ extern "C" int w4_verify_planes(const u32* u1w, const u32* u2w, const u32* qx, c
     return (int)cudaGetLastError();
 }
 
-extern "C" const char* w4_error_string(int code) {
+// The message of a cudaError_t, for every entry of the kernel library.
+extern "C" const char* cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }

@@ -9,11 +9,22 @@ reference CPU engine; probabilistic half-open probes re-test the device.
 The ecdsa site's known-answer lanes and reject-side host confirmation
 live in ops/ecdsa_batch (BatchHandle).
 
+The miner site (``supervised_sweep`` / ``supervised_resident_sweep``)
+re-verifies every claimed nonce on the host. One difference from the
+reference, deliberate: ``supervised_call`` serves ``cpu_fn`` only for a
+fault the harness injected (``BCP_FAULT_*``: an ``InjectedFault``, or a
+validation failure of output it poisoned), and, while the harness is
+armed for the site, when the breaker those faults opened is open. Every
+other failure of the device leg — ``KernelUnavailable``, a CUDA runtime
+error, an out-of-memory error, a claimed nonce that fails the host
+check, a programming error — raises ``KernelUnavailable`` after the
+in-call retries, and so does an open breaker with no fault armed: a
+missing or broken kernel must surface, not turn into the scalar nonce
+loop (which needs days at difficulty 1).
+
 What this slice of the port leaves out: ``merkle_root`` computes on the
 host at every leaf count (the device Merkle reduction, K2 in
-ops/merkle.py of the reference, is a later slice), and the miner nonce
-sweeps (``supervised_sweep`` / ``supervised_resident_sweep``) come with
-the mining slice.
+ops/merkle.py of the reference, is a later slice).
 
 Env knobs (read at configure time):
     BCP_BREAKER_THRESHOLD  consecutive failures to open (default 3)
@@ -33,8 +44,10 @@ from typing import Callable, Optional
 
 from ..util import devicewatch as dw
 from ..util import telemetry as tm
-from ..util.faults import INJECTOR, Backoff, PoisonedOutput, retry_call
+from ..util.faults import (INJECTOR, Backoff, InjectedFault, PoisonedOutput,
+                           retry_call)
 from ..util.log import log_print, log_printf
+from .cuda_build import KernelUnavailable, raise_kernel_fault
 
 CLOSED, OPEN, HALF_OPEN = "closed", "open", "half-open"
 
@@ -258,24 +271,31 @@ def supervised_call(site: str, device_fn: Callable, cpu_fn: Callable,
     device_fn() is attempted (with cfg.retries same-call retries and
     jittered backoff between them) unless the breaker is open; its output
     is passed through ``validate`` (a cheap host-side probe returning
-    truthy on sane output) before it is trusted. Any exception or failed
-    validation after the retries counts one breaker failure and the call
-    is served by cpu_fn() instead. ``poison`` is the fault harness's
-    output-corruption hook (applied when BCP_FAULT_MODE=poison-output is
-    armed for this site) — it exists so tests can prove the validation
-    probe actually gates the verdict path.
+    truthy on sane output) before it is trusted. A fault the harness
+    injected (an InjectedFault, or a failed validation of output that
+    ``poison`` corrupted) counts one breaker failure after the retries,
+    and the call is served by cpu_fn() instead. Any other exception or
+    failed validation raises KernelUnavailable after the retries (a
+    broken kernel), and so does an open breaker while no fault is armed
+    for the site. ``poison`` is the fault harness's output-corruption
+    hook (applied when BCP_FAULT_MODE=poison-output is armed for this
+    site) — it exists so tests can prove the validation probe actually
+    gates the verdict path.
 
     Returns (result, used_device)."""
     br = breaker(site)
     if br.allow():
         calls = [0]
+        poisoned = [False]
 
         def attempt():
             calls[0] += 1
+            poisoned[0] = False
             INJECTOR.on_call(site)
             out = device_fn()
             if poison is not None and INJECTOR.should_poison(site):
                 out = poison(out)
+                poisoned[0] = True
             if validate is not None and not validate(out):
                 raise PoisonedOutput(
                     f"{site}: device output failed validation probe")
@@ -299,14 +319,25 @@ def supervised_call(site: str, device_fn: Callable, cpu_fn: Callable,
             # themselves (util/devicewatch phase vocabulary)
             dw.note_phase(site, "execute", dt)
             return out, True
-        except (KeyboardInterrupt, SystemExit):
+        except (KeyboardInterrupt, SystemExit, KernelUnavailable):
             raise
         except Exception as e:  # noqa: BLE001 — breaker boundary
+            raise_kernel_fault(e, f"the {site} kernel")
+            injected = isinstance(e, InjectedFault) or (
+                isinstance(e, PoisonedOutput) and poisoned[0])
+            if not injected:
+                raise KernelUnavailable(
+                    f"the {site} device leg failed: "
+                    f"{type(e).__name__}: {e}") from e
             br.record_failure(e)
             if calls[0] > 1:
                 _RETRIES.labels(site=site).inc(calls[0] - 1)
             log_print("tpu", "%s device call failed (%s) — CPU fallback",
                       site, e)
+    elif not INJECTOR.armed_for(site):
+        raise KernelUnavailable(
+            f"the {site} breaker is open and no fault is injected "
+            f"there: {br.snapshot()}")
     br.note_fallback(items)
     t0 = time.monotonic()
     out = cpu_fn()
@@ -434,3 +465,61 @@ def block_merkle_root(block) -> tuple:
     entry)."""
     return merkle_root([tx.txid for tx in block.vtx],
                        expected=block.header.hash_merkle_root)
+
+
+def supervised_resident_sweep(resident):
+    """Wrap a mining/resident.ResidentSweep's persistent loop in miner
+    supervision: the resident segment pipeline (template swaps, candidate
+    FIFO, nonce rollover) runs as the device path, a claimed hit is host
+    re-verified, and an injected device fault degrades to the scalar host
+    loop under the same miner circuit breaker as the per-dispatch path;
+    any other failure raises KernelUnavailable."""
+    return supervised_sweep(inner=resident.sweep)
+
+
+def supervised_sweep(inner=None):
+    """Wrap a PoW sweep implementation (ops/miner.sweep_header,
+    ops/sha256_sweep.sweep_header_fast, ops/pallas_sweep.
+    sweep_header_pallas, mining/resident.ResidentSweep.sweep) in miner
+    supervision: a claimed hit is re-verified on host before it is trusted
+    (2 hashes — free next to a sweep); an injected fault degrades to the
+    scalar CPU loop, the reference generateBlocks inner loop, and any
+    other failure raises KernelUnavailable (supervised_call). Returns a
+    callable with the sweep_header signature."""
+    def sweep(header80: bytes, target: int, start_nonce: int = 0,
+              max_nonces: int = 1 << 32, tile: Optional[int] = None):
+        from ..crypto.hashes import sha256d
+        from .miner import DEFAULT_TILE, sweep_header_cpu
+
+        dev = inner
+        if dev is None:
+            from .miner import sweep_header as dev  # noqa: PLC0415
+
+        eff_tile = DEFAULT_TILE if tile is None else tile
+
+        def device():
+            return dev(header80, target, start_nonce=start_nonce,
+                       max_nonces=max_nonces, tile=eff_tile)
+
+        def cpu():
+            return sweep_header_cpu(header80, target, start_nonce=start_nonce,
+                                    max_nonces=max_nonces)
+
+        def validate(res):
+            nonce, _hashes = res
+            if nonce is None:
+                return True  # a missed hit costs work, never consensus
+            hdr = header80[:76] + int(nonce).to_bytes(4, "little")
+            return int.from_bytes(sha256d(hdr), "little") <= target
+
+        def poison(res):
+            nonce, hashes = res
+            bad = (nonce ^ 1) if nonce is not None else start_nonce
+            return (bad & 0xFFFFFFFF, hashes)
+
+        out, _ = supervised_call("miner", device, cpu,
+                                 validate=validate, poison=poison,
+                                 items=1)
+        return out
+
+    return sweep

@@ -22,9 +22,10 @@ Differences, all deliberate: w4 is the only device kernel and the default
 (``ECDSA_KERNELS == ("w4",)``); GLV and the Schnorr MSM are later slices
 of the port, and ``set_kernel("glv"|"msm")`` raises. Schnorr lanes take
 the per-lane oracle (the reference's route when msm is not selected).
-The device is ``cuda`` unless ``set_device("cpu")`` selects the plain
-PyTorch version (the tests). A kernel that cannot be built or launched
-raises ``KernelUnavailable`` through the supervision, and so does a CUDA
+The device is ``cuda`` unless ``set_device("cpu")`` (ops/cuda_build.py,
+re-exported here) selects the plain PyTorch version (the tests). A
+kernel that cannot be built or launched raises ``KernelUnavailable``
+through the supervision, and so does a CUDA
 runtime error that torch reports from the kernel's launch or its verdict
 read (an illegal address); neither is degraded to the CPU, and with no
 card and no CPU device selected the device leg raises too.
@@ -50,7 +51,10 @@ from ..util import telemetry as tm
 from ..util.faults import INJECTOR, Backoff, PoisonedOutput
 from ..util.log import log_printf
 from . import dispatch
-from .secp256k1 import KernelUnavailable
+# set_device is re-exported: the device switch is shared by every kernel
+# module of the port (ops/cuda_build.py)
+from .cuda_build import (KernelUnavailable, device, raise_kernel_fault,
+                         require_device, set_device)
 
 # -- telemetry families (util/telemetry): per-stage host-pack latency,
 # device settle-wait distribution, dispatch/flush lane-size histograms,
@@ -147,35 +151,6 @@ def _watched_kernel(pw, bucket: int, arrays, fn, split: int | None = 16384):
 
 
 # ---- device and kernel selection --------------------------------------------
-
-_DEVICE: Optional[torch.device] = None  # set_device() override; None = cuda
-
-
-def set_device(dev) -> torch.device:
-    """Select the device the verify kernels run on: ``"cuda"`` (the
-    default) or ``"cpu"`` (the plain PyTorch version — the tests)."""
-    global _DEVICE
-    d = torch.device(dev)
-    if d.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev!r} (cuda or cpu)")
-    _DEVICE = d
-    return d
-
-
-def device() -> torch.device:
-    return _DEVICE if _DEVICE is not None else torch.device("cuda")
-
-
-def _require_device() -> torch.device:
-    """The device leg's entry check: CUDA selected with no card raises —
-    it never carries on quietly on the CPU."""
-    d = device()
-    if d.type == "cuda" and not torch.cuda.is_available():
-        raise KernelUnavailable(
-            "the ecdsa device leg needs CUDA, and torch.cuda.is_available() "
-            "is False (select set_device('cpu') for the plain version)")
-    return d
-
 
 # "w4" is the only device verify kernel of this slice of the port; the
 # reference's "glv" (default there) and "msm" rungs are later slices.
@@ -634,7 +609,7 @@ class BatchHandle:
             STATS.in_flight = max(0, STATS.in_flight - 1)
             _IN_FLIGHT_G.set(STATS.in_flight)
             self._device_ok = None
-            _raise_kernel_fault(e)
+            raise_kernel_fault(e, "the w4 kernel")
             return self._device_failed(e)
         # device_seconds counts only the blocking wait — when the overlap
         # is doing its job the host hid the latency and this is near zero
@@ -741,19 +716,6 @@ _NEVER_DEGRADE = (NameError, AttributeError, UnboundLocalError,
                   KernelUnavailable)
 
 
-def _raise_kernel_fault(err: BaseException) -> None:
-    """Raise KernelUnavailable when ``err`` is a CUDA runtime error that
-    torch reported (an illegal address or a failed launch in the kernel:
-    the context is lost, and a broken kernel must surface rather than hide
-    behind the breaker's CPU re-verify). Any other error returns, to be
-    supervised as a transient device fault."""
-    accel = getattr(torch, "AcceleratorError", None)
-    if (accel is not None and isinstance(err, accel)) or (
-            isinstance(err, RuntimeError) and "CUDA error" in str(err)):
-        raise KernelUnavailable(
-            f"the w4 kernel failed on the card: {err}") from err
-
-
 def _dispatch_device(records: Sequence, br,
                      kernel: str | None = None) -> Optional[BatchHandle]:
     """One supervised device enqueue attempt (with retries). Returns None
@@ -773,7 +735,7 @@ def _dispatch_device(records: Sequence, br,
     for attempt in range(br.cfg.retries + 1):
         try:
             INJECTOR.on_call("ecdsa")
-            _require_device()
+            require_device("the ecdsa device leg")
             bucket = _bucket_for(len(wire), pallas=True)
             if bucket % 1024 == 0:
                 with dw.phase("ecdsa", "pack"):
@@ -795,7 +757,7 @@ def _dispatch_device(records: Sequence, br,
         except _NEVER_DEGRADE:
             raise
         except Exception as e:  # noqa: BLE001 — supervised boundary
-            _raise_kernel_fault(e)
+            raise_kernel_fault(e, "the w4 kernel")
             last = e
             if attempt < br.cfg.retries:
                 time.sleep(boff.next())
@@ -1198,7 +1160,7 @@ def _dispatch_packed_device(pub, rs, msg, rn, wrap, n: int,
     for attempt in range(br.cfg.retries + 1):
         try:
             INJECTOR.on_call("ecdsa")
-            _require_device()
+            require_device("the ecdsa device leg")
             # u1/u2 via the threaded native modular-inverse leg;
             # Python-int loop only if the native library is missing
             if native.available():
@@ -1249,7 +1211,7 @@ def _dispatch_packed_device(pub, rs, msg, rn, wrap, n: int,
         except _NEVER_DEGRADE:
             raise
         except Exception as e:  # noqa: BLE001 — supervised boundary
-            _raise_kernel_fault(e)
+            raise_kernel_fault(e, "the w4 kernel")
             last = e
             if attempt < br.cfg.retries:
                 time.sleep(boff.next())

@@ -3,8 +3,9 @@
 Port of the w4 part of the reference's ops/secp256k1.py. Two layers:
 
 - **The kernel** (``csrc/w4_verify.cu``, CUDA C++ for sm_90a, built with
-  nvcc at first use and bound with ctypes). It replaces both Pallas w4
-  kernels of the JAX package: ``_verify_kernel_w4_3d`` (its
+  nvcc at first use and bound with ctypes by ops/cuda_build.py). It
+  replaces both Pallas w4 kernels of the JAX package:
+  ``_verify_kernel_w4_3d`` (its
   ``pallas_call`` at bitcoincashplus_tpu/ops/secp256k1.py:912, behind
   ``ecdsa_verify_batch_pallas_w4_bytes``) through the entry
   ``w4_verify_bytes``, and ``_verify_kernel_w4`` (``pallas_call`` at
@@ -37,18 +38,14 @@ re-verified on the host by the caller (ops/ecdsa_batch.BatchHandle).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..crypto.secp256k1 import G, P, point_add
+from . import cuda_build
+from .cuda_build import KernelUnavailable
 
 LIMB_BITS = 16
 N_LIMBS = 16
@@ -58,12 +55,6 @@ MASK = (1 << LIMB_BITS) - 1
 # carry field elements between the two packages
 JAX_LIMB_BITS = 13
 JAX_N_LIMBS = 20
-
-
-class KernelUnavailable(RuntimeError):
-    """The CUDA kernel could not be built, loaded or launched, or failed on
-    the card. Supervised dispatch re-raises it: a missing or broken kernel
-    is never degraded to the CPU."""
 
 
 # Launch counts per kernel entry, and per (entry, lanes) shape: each
@@ -445,92 +436,22 @@ def bits_to_windows_np(scalar_bytes: np.ndarray, bucket: int) -> np.ndarray:
     return out
 
 
-# ---- the CUDA kernel: build, load, launch -----------------------------------
+# ---- the CUDA kernel: launch ------------------------------------------------
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "w4_verify.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_LIB_LOCK = threading.Lock()
-_LIB = None
-_LIB_ERROR: str | None = None
-BUILD_INFO: dict = {}
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise KernelUnavailable("nvcc not found (PATH or $CUDA_HOME/bin)")
-
-
-def build_kernel() -> str:
-    """Compile csrc/w4_verify.cu into build/torch_kernels/ (the file name
-    carries the source hash, so a stale library is never loaded). Returns
-    the library path; raises KernelUnavailable on failure."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"w4_verify_{digest}.so")
-    if os.path.exists(out):
-        BUILD_INFO["cached"] = True
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
-    t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    BUILD_INFO.update(seconds=time.monotonic() - t0, cached=False,
-                      command=" ".join(cmd),
-                      log=(proc.stdout + proc.stderr)[-4000:])
-    if proc.returncode != 0:
-        raise KernelUnavailable(
-            f"nvcc failed ({proc.returncode}): {proc.stderr[-2000:]}")
-    os.replace(tmp, out)
-    return out
-
-
-def _kernel_lib() -> ctypes.CDLL:
-    """Build (once per process) and load the kernel library. A failure is
-    remembered and raised again on every later call."""
-    global _LIB, _LIB_ERROR
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        if _LIB_ERROR is not None:
-            raise KernelUnavailable(_LIB_ERROR)
-        try:
-            lib = ctypes.CDLL(build_kernel())
-        except (KernelUnavailable, OSError, subprocess.SubprocessError) as e:
-            _LIB_ERROR = f"{type(e).__name__}: {e}"
-            raise KernelUnavailable(_LIB_ERROR) from e
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for name in ("w4_verify_bytes", "w4_verify_planes"):
-            fn = getattr(lib, name)
-            fn.argtypes = [vp] * 10 + [ci, vp]
-            fn.restype = ci
-        lib.w4_error_string.argtypes = [ci]
-        lib.w4_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-        return lib
+_ENTRY_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def _launch(name: str, inputs: list, B: int) -> tuple:
     """Launch one entry on the current stream: inputs are contiguous CUDA
     tensors; allocates and returns the (ok, degen) uint8 outputs."""
-    lib = _kernel_lib()
+    fn = cuda_build.entry(name, _ENTRY_ARGS)
     dev = inputs[0].device
     ok = torch.empty(B, dtype=torch.uint8, device=dev)
     degen = torch.empty(B, dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(lib, name)(*[t.data_ptr() for t in inputs], ok.data_ptr(),
-                            degen.data_ptr(), B, stream)
-    if rc != 0:
-        raise KernelUnavailable(
-            f"{name} launch failed: {lib.w4_error_string(rc).decode()}")
+    rc = fn(*[t.data_ptr() for t in inputs], ok.data_ptr(), degen.data_ptr(),
+            B, stream)
+    cuda_build.check_launch(name, rc)
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[(name, B)] = LAUNCH_SHAPES.get((name, B), 0) + 1
     return ok, degen

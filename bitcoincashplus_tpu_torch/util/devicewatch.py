@@ -23,7 +23,7 @@ Counterpart of the reference's util/devicewatch.py. What carries over:
 
 Left out on purpose: the jax compilation-cache and ``jax.profiler`` hooks
 (PyTorch runs eagerly and has no compile to cache; a kernel is built once
-per process by ops/secp256k1).
+per process by ops/cuda_build).
 
 No CUDA work at import: the memory collector reads CUDA state only after
 something else initialised it.

@@ -6,18 +6,34 @@ NVIDIA card.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build   — compile csrc/w4_verify.cu with nvcc (sm_90a) from this
-             checkout; print the build seconds and ptxas' report.
-2. kernels — each CUDA entry at the shapes the main path gives it
+1. build   — compile every csrc/*.cu (w4_verify.cu, sha256d_sweep.cu) in
+             one nvcc call (sm_90a) from this checkout; print the build
+             seconds, ptxas' registers and spills per kernel, and the
+             sweep kernels' SASS instruction counts (cuobjdump) beside the
+             counts taken from their rounds.
+2. ecdsa   — each ECDSA entry at the shapes the validation path gives it
              (w4_verify_bytes at B = 1024, 2048, 8192, 16384;
              w4_verify_planes at B = 32, 128) on seeded valid and invalid
              signatures, wrap lanes, q_inf lanes and crafted degenerate
-             lanes; the kernel is held against its plain PyTorch version
-             on the card (degen equal everywhere, ok equal on non-degen
-             lanes) and the verdicts after the host re-check against the
-             host oracle. Kernel and plain times, and the integer-op
-             bound.
-3. slice   — the block-validation main path at bench.py's reindex size:
+             lanes, held against its plain PyTorch version on the card
+             (degen equal everywhere, ok equal on non-degen lanes) and the
+             verdicts after the host re-check against the host oracle.
+3. sweeps  — each sweep entry (sweep_h7 at tile 2^20 and at the resident
+             loop's 2^16 x 8, sweep_h7_pallas at 64 x 128 lanes x 4096
+             tiles, sweep_exact at tile 2^16) against its plain version:
+             (found, nonce, tiles_done) exactly equal at 8 seeded starts
+             with about one candidate a launch, a start straddling 2^32
+             whose first candidate lies past the wrap, and a no-hit
+             launch; kernel and plain times on the no-hit launch, GH/s,
+             and the integer-operation bound. Then the exact and h7
+             engines' own launch, the whole nonce space (2^16 x 65536 and
+             2^20 x 4096 from nonce 0), against the plain version with its
+             first candidate between 2^26 and 2^28, both timed on it; and
+             that launch timed with no hit (no plain time: minutes).
+4. genesis — a known answer: the mainnet genesis header at target
+             0x1d00ffff, a 2^28-nonce window ending at its nonce, swept by
+             each entry's host loop: the same nonce, host-verified.
+5. slice   — the block-validation main path at bench.py's reindex size:
              a 16,000-signature regtest chain from workload/sigchain.py,
              read back block by block through a ChainstateManager with
              BlockScriptVerifier(backend="device", kernel="w4") at
@@ -29,10 +45,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              CPU engine: the coin digest and best block must match. Any
              shape the main path launched that phase 2 did not cover
              is then held against the plain version the same way.
-4. report  — a JSON line of the kernels (times at the shape the main
-             path launched most) with launches, errors, times and
-             bounds; the validation wall time and sigs/s; the card's name
-             and power limit; last, {"ok": true, "device": {...}}.
+6. mining  — the mining main path at difficulty 1 (testnet, nBits
+             0x1d00ffff: 2^32 hashes a block on average): generate_blocks
+             on an on-disk testnet ChainstateManager with the exact engine
+             (the supervised default, 4 blocks), then h7, pallas-h7 and
+             resident-h7 (2 blocks each); every block connected, every
+             hash host-verified, no miner fallback, each engine's entry
+             launched (counts zeroed just before each engine, read just
+             after). Per engine: blocks, hashes swept, wall s, GH/s end to
+             end, and the kernel's share of the wall.
+7. report  — a JSON line of the five kernels with launches on the main
+             paths, errors, times and bounds; the card's name and power
+             limit; last, {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 false or the port package is not importable.
@@ -67,6 +91,28 @@ IMAD_PER_FSQR = 2 * (36 + 9)
 # (squarings, multiplies) of each formula in csrc/w4_verify.cu
 SQR_MUL_DOUBLE, SQR_MUL_MADD, SQR_MUL_FADD, SQR_MUL_FINAL = \
     (5, 2), (3, 8), (4, 12), (1, 2)
+# H100: 64 32-bit integer operations (IADD3, LOP3, SHF, PRMT, ISETP) per
+# SM per clock (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, cc 9.0)
+INT_OPS_PER_SM_CLK = 64
+
+# The sweep kernels: entry -> [(tile, n_tiles)] of the launches compared
+# with the plain version at 8 starts, a straddle and a no-hit launch: each
+# main-path tile at 2^25 nonces a launch (the Pallas contract's own
+# launch: 64 x 128 lanes x 4096 tiles), and the resident loop's segment
+# (tile 2^16 x 8 tiles) as it is. The whole-space launches of the exact
+# and h7 engines are compared in whole_space_case.
+SWEEP_CONFIGS = {
+    "sweep_h7": [(1 << 20, 32), (1 << 16, 8)],
+    "sweep_h7_pallas": [(64 * 128, 4096)],
+    "sweep_exact": [(1 << 16, 512)],
+}
+SWEEP_STARTS = 8              # seeded starts at ~1 candidate a launch
+GENESIS_NONCE = 2083236893    # the mainnet genesis block's nonce
+GENESIS_WINDOW = 1 << 28
+DIFF1_BITS = 0x1D00FFFF
+MINING_BLOCKS = {"exact": 4, "h7": 2, "pallas-h7": 2, "resident-h7": 2}
+MAX_TRIES = 16 << 32          # several full nonce spaces a block
 
 
 def log(msg: str) -> None:
@@ -386,6 +432,477 @@ def slice_phase(workdir: str, sigs: int = CHAIN_SIGS,
             "packed_false": int((~packed).sum()), "checks": checks}
 
 
+# ---- the sweep kernels ------------------------------------------------------
+
+def _chunk3_schedule_ops(upto: int) -> tuple:
+    """(ALU-pipe, add) instructions of the second hash's schedule words
+    16..upto-1 in csrc/sha256d_sweep.cu: words 8..15 are constants (PAD,
+    six zeros, the length), so a zero term vanishes and constant terms
+    fold into one; a sigma of a variable is 4 ALU instructions (3 shifts
+    or funnel shifts and one LOP3), and n terms need n // 2 IADD3."""
+    kind = {i: "v" for i in range(8)}
+    kind.update({8: "c", 15: "c", **{i: "z" for i in range(9, 15)}})
+    alu = adds = 0
+    for i in range(16, upto):
+        const = n_var = 0
+        for src, sigma in ((i - 16, False), (i - 15, True), (i - 7, False),
+                           (i - 2, True)):
+            if kind[src] == "c":
+                const = 1
+            elif kind[src] == "v":
+                n_var += 1
+                alu += 4 if sigma else 0
+        adds += (n_var + const) // 2
+        kind[i] = "v"
+    return alu, adds
+
+
+def sweep_ops_per_nonce(exact: bool) -> dict:
+    """The 32-bit integer instructions a nonce needs in the kernel's rounds
+    (csrc/sha256d_sweep.cu), counted the way the card executes them, split
+    by pipe. ALU-pipe only: a sigma is 3 shifts or funnel shifts and one
+    three-input XOR (LOP3), Ch and Maj one LOP3 each, a byte swap one PRMT,
+    a compare one ISETP — a round is Sigma1 + Ch + Sigma0 + Maj = 10. Adds
+    (a three-term add is one IADD3; a round's t1, a and e are 4) may issue
+    on the FMA pipe as IMAD instead."""
+    sig, rnd_alu, rnd_add = 4, 10, 4
+    s_alu, s_add = _chunk3_schedule_ops(64 if exact else 61)
+    # chunk 2: bswap of the nonce; schedule sigmas v18 (s0), v20..32 (s1,
+    # 13) and W33..63 (s0 + s1, 31 words); rounds 4..63
+    alu = 1 + (1 + 13 + 2 * 31) * sig + 60 * rnd_alu
+    # its adds: W18, W19; W20..32 (11 with a scalar leg) and v25..32 (8);
+    # W33..63 (2 each); round 3 (t1, a, e); rounds 4..63; + midstate
+    adds = 2 + 11 + 8 + 31 * 2 + 3 + 60 * rnd_add + 8
+    # chunk 3: round 0 from the IV folds to 3 adds
+    alu += s_alu
+    adds += s_add + 3
+    if exact:
+        alu += 63 * rnd_alu + 8 + 1 + 7 * 2    # bswaps, le256 compares
+        adds += 63 * rnd_add + 8               # + IV
+    else:
+        # rounds 1..56; the e-chain of 57..59 and round 60's t1 (Sigma1 +
+        # Ch); bswap and compare of h7
+        alu += 56 * rnd_alu + 4 * (sig + 1) + 2
+        adds += 56 * rnd_add + 3 * 3 + 2 + 1   # t1 + e, t1_60, h7
+    return {"alu": alu, "adds": adds, "total": alu + adds}
+
+
+# instructions only the integer ALU pipe executes (IADD3 may issue there
+# too, and IMAD on the FMA pipe)
+_ALU_ONLY = ("SHF", "SHL", "SHR", "LOP3", "PRMT", "ISETP")
+_NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
+            "ATOM", "RED", "S2R", "NOP", "BSSY", "BSYNC", "WARPSYNC", "LDC",
+            "CS2R", "CALL", "RET", "YIELD", "MEMBAR", "CCTL", "MOV"}
+
+
+def sass_counts(lib: str) -> dict | None:
+    """Opcode counts of each sweep kernel in the built library
+    (``cuobjdump -sass``), or None where the toolkit has no cuobjdump.
+    The nonce loop is not unrolled, so a kernel's instructions are one
+    nonce's hash plus the loop's own few."""
+    import collections
+    import re
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            cur = next((k for k in ("sweep_h7_kernel", "sweep_exact_kernel")
+                        if k in name), None)
+            if cur:
+                funcs[cur] = collections.Counter()
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)", line)
+        if m and cur:
+            funcs[cur][m.group(1)] += 1
+    result = {}
+    for name, ops in funcs.items():
+        integer = sum(n for op, n in ops.items()
+                      if op not in _NOT_ALU and not op.startswith("U"))
+        result[name] = {"total": sum(ops.values()), "integer": integer,
+                        "alu": sum(ops[op] for op in _ALU_ONLY),
+                        "top": ops.most_common(8)}
+    return result
+
+
+def _h7_limb(header: bytes, nonce: int) -> int:
+    from bitcoincashplus_tpu_torch.crypto.hashes import sha256d
+
+    d = sha256d(header[:76] + nonce.to_bytes(4, "little"))
+    return int.from_bytes(d[28:32], "little")  # bswap32(h7)
+
+
+def _pow_hash(header: bytes, nonce: int) -> int:
+    from bitcoincashplus_tpu_torch.crypto.hashes import sha256d
+
+    return int.from_bytes(sha256d(header[:76] + nonce.to_bytes(4, "little")),
+                          "little")
+
+
+def sweep_case(entry: str, tile: int, n_tiles: int, seed: int,
+               clock_hz: float, ops: dict, device: str = "cuda",
+               reps: int = 10) -> dict:
+    """One entry at one launch shape: kernel vs plain on the card, (found,
+    nonce, tiles_done) exactly equal, at SWEEP_STARTS seeded starts with
+    about one candidate a launch, a start straddling 2^32 whose first
+    candidate lies past the wrap (a small nonce, below the start) and a
+    no-hit launch; candidates host-verified; kernel and plain times on the
+    no-hit launch, and the integer-operation bound. (On a CPU device the
+    wrapper itself takes the plain version: a rehearsal of the checks.)"""
+    import random
+
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import miner as MI
+    from bitcoincashplus_tpu_torch.ops import pallas_sweep as PS
+    from bitcoincashplus_tpu_torch.ops import sha256_sweep as SW
+
+    dev = torch.device(device)
+    rng = random.Random(seed)
+    header = bytes(rng.randrange(256) for _ in range(80))
+    tmpl = SW.header_template(header, dev)
+    nonces = tile * n_tiles
+    exact = entry == "sweep_exact"
+    t7_one = max(0, (1 << 32) // nonces - 1)  # ~1 candidate a launch
+
+    def target_of(t7):  # the exact entry's target at h7's odds
+        return ((t7 + 1) << 224) - 1 if t7 else 0
+
+    def run(t7, start, plain=False):
+        if entry == "sweep_h7":
+            fn = SW.sweep_h7_plain if plain else SW.sweep_fast
+            return fn(tmpl, t7, start, n_tiles, tile)
+        if entry == "sweep_h7_pallas":
+            if plain:
+                return SW.sweep_h7_plain(tmpl, t7, start, n_tiles, tile)
+            return PS.pallas_sweep(tmpl, t7, start, n_tiles,
+                                   tile // PS.LANES, n_tiles)
+        tgt = MI.target_tensor(target_of(t7), dev)
+        fn = MI.sweep_exact_plain if plain else MI.sweep
+        return fn(tmpl, tgt, start, n_tiles, tile)
+
+    def check(t7, start):
+        got = run(t7, start).tolist()
+        ref = run(t7, start, plain=True).tolist()
+        if got != ref:
+            raise AssertionError(f"{entry} tile={tile} n_tiles={n_tiles} "
+                                 f"start={start} t7={t7}: kernel {got}, "
+                                 f"plain {ref}")
+        found, nonce, tiles = got
+        if found:
+            ok = (_pow_hash(header, nonce) <= target_of(t7) if exact
+                  else _h7_limb(header, nonce) <= t7)
+            off = (nonce - start) & 0xFFFFFFFF
+            if not ok or tiles != off // tile + 1:
+                raise AssertionError(f"{entry}: a false hit {got}")
+        elif tiles != n_tiles:
+            raise AssertionError(f"{entry}: no hit but tiles {tiles}")
+        return got
+
+    def wrapped_start(t7):
+        """A start whose launch straddles 2^32 with no candidate below
+        2^32: from 2^32 - nonces/2, step past each candidate the plain
+        version finds before the wrap. None if the launch then has no
+        candidate past it either."""
+        start = (1 << 32) - nonces // 2
+        while True:
+            found, nonce, _ = run(t7, start, plain=True).tolist()
+            if not found or nonce == 0xFFFFFFFF:
+                return None
+            if nonce < start:
+                return start
+            start = nonce + 1
+
+    starts = [rng.getrandbits(32) for _ in range(SWEEP_STARTS)]
+    results = [check(t7_one, st) for st in starts]
+    for odds in (1, 2, 4, 8):  # candidates a launch
+        t7_wrap = (t7_one + 1) * odds - 1
+        wstart = wrapped_start(t7_wrap)
+        if wstart is not None:
+            break
+    else:
+        raise AssertionError(f"{entry}: no straddling launch whose first "
+                             "candidate lies past 2^32")
+    straddle = check(t7_wrap, wstart)
+    if not straddle[0] or straddle[1] >= wstart:
+        raise AssertionError(f"{entry}: the straddle from {wstart} did not "
+                             f"wrap: {straddle}")
+    # a no-hit launch: t7 = 0 (exact: target 0) — an h7 candidate there has
+    # odds nonces / 2^32; take the first start that has none
+    for k in range(4):
+        quiet_start = (starts[0] + k * nonces) & 0xFFFFFFFF
+        if check(0, quiet_start)[0] == 0:
+            break
+    else:
+        raise AssertionError(f"{entry}: no quiet start for the no-hit launch")
+    if dev.type == "cuda":
+        ms = time_cuda(lambda: run(0, quiet_start), reps)
+    else:
+        ms = time_once(lambda: run(0, quiet_start), dev)[0]
+    plain_ms = time_once(lambda: run(0, quiet_start, plain=True), dev)[0]
+    per_nonce = ops["exact" if exact else "h7"]  # ALU-pipe instructions
+    ops_ms = per_nonce * nonces / (SMS * INT_OPS_PER_SM_CLK * clock_hz) * 1e3
+    bytes_ms = (4 * 64 + (32 if exact else 0) + 32) / HBM_BYTES_S * 1e3
+    return {"tile": tile, "n_tiles": n_tiles, "nonces": nonces, "ms": ms,
+            "plain_ms": plain_ms, "ghs": nonces / ms / 1e6,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_per_nonce": per_nonce, "max_abs_err": 0,
+            "found": sum(r[0] for r in results), "settings": len(results) + 2,
+            "straddle": {"start": wstart, "t7": t7_wrap, "result": straddle}}
+
+
+def whole_space_case(entry: str, tile: int, clock_hz: float, ops: dict,
+                     tries: int = 16, reps: int = 5) -> dict:
+    """The exact and h7 engines' own launch, the whole nonce space from
+    nonce 0 (2^32 / tile tiles): kernel against plain on the card,
+    (found, nonce, tiles_done) exactly equal, at t7 = 31 (one candidate in
+    2^27 nonces on average; the exact entry's target at the same odds) on
+    the first seeded header whose first candidate lies between 2^26 and
+    2^28 — far past sweep_case's 2^25-nonce launches, and affordable for
+    the plain version, which stops after the tile holding it. Kernel and
+    plain times on this launch; its bound counts the nonces up to and
+    including the hit (what these inputs need)."""
+    import random
+
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import miner as MI
+    from bitcoincashplus_tpu_torch.ops import sha256_sweep as SW
+
+    dev = torch.device("cuda")
+    n_tiles = (1 << 32) // tile
+    exact = entry == "sweep_exact"
+    t7 = 31
+    target = ((t7 + 1) << 224) - 1
+    rng = random.Random(tile + 1)
+    for _ in range(tries):
+        header = bytes(rng.randrange(256) for _ in range(80))
+        tmpl = SW.header_template(header, dev)
+        tgt = MI.target_tensor(target, dev)
+
+        def run(plain=False, tmpl=tmpl, tgt=tgt):
+            if exact:
+                fn = MI.sweep_exact_plain if plain else MI.sweep
+                return fn(tmpl, tgt, 0, n_tiles, tile)
+            fn = SW.sweep_h7_plain if plain else SW.sweep_fast
+            return fn(tmpl, t7, 0, n_tiles, tile)
+
+        found, nonce, _ = run().tolist()
+        if found and 1 << 26 <= nonce < 1 << 28:
+            break
+    else:
+        raise AssertionError(f"{entry}: no header with its first candidate "
+                             "between 2^26 and 2^28")
+    plain_ms, ref = time_once(lambda: run(plain=True).tolist(), dev)
+    got = run().tolist()
+    if got != ref:
+        raise AssertionError(f"{entry} tile={tile} x {n_tiles}: kernel "
+                             f"{got}, plain {ref}")
+    found, nonce, tiles = got
+    ok = (_pow_hash(header, nonce) <= target if exact
+          else _h7_limb(header, nonce) <= t7)
+    if not ok or tiles != nonce // tile + 1:
+        raise AssertionError(f"{entry}: a false hit {got}")
+    ms = time_cuda(run, reps)
+    need = nonce + 1
+    per_nonce = ops["exact" if exact else "h7"]
+    ops_ms = per_nonce * need / (SMS * INT_OPS_PER_SM_CLK * clock_hz) * 1e3
+    bytes_ms = (4 * 64 + (32 if exact else 0) + 32) / HBM_BYTES_S * 1e3
+    return {"tile": tile, "n_tiles": n_tiles, "nonces": need, "ms": ms,
+            "plain_ms": plain_ms, "ghs": need / ms / 1e6,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "max_abs_err": 0, "result": got}
+
+
+def full_launch(entry: str, tile: int, clock_hz: float, ops: dict,
+                tries: int = 8, reps: int = 2) -> dict:
+    """Kernel time of a no-hit launch of the whole nonce space (2^32
+    nonces, as the exact and h7 engines launch at difficulty 1). The
+    exact entry at target 0 never hits; the h7 entry at t7 = 0 meets a
+    candidate about once in 2^32 nonces, so seeded headers are tried
+    until one has none. No plain time: the plain version would take
+    minutes for 2^32 nonces."""
+    import random
+
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import miner as MI
+    from bitcoincashplus_tpu_torch.ops import sha256_sweep as SW
+
+    n_tiles = (1 << 32) // tile
+    rng = random.Random(tile)
+    for _ in range(tries):
+        header = bytes(rng.randrange(256) for _ in range(80))
+        tmpl = SW.header_template(header, "cuda")
+        tgt = MI.target_tensor(0, "cuda")
+
+        def run(tmpl=tmpl, tgt=tgt):
+            if entry == "sweep_exact":
+                return MI.sweep(tmpl, tgt, 0, n_tiles, tile)
+            return SW.sweep_fast(tmpl, 0, 0, n_tiles, tile)
+
+        if run().tolist() == [0, 0, n_tiles]:
+            break
+    else:
+        raise AssertionError(f"{entry}: no header without a candidate")
+    ms = time_cuda(run, reps)
+    torch.cuda.synchronize()
+    per_nonce = ops["exact" if entry == "sweep_exact" else "h7"]
+    bound = per_nonce * (1 << 32) / (SMS * INT_OPS_PER_SM_CLK * clock_hz) * 1e3
+    return {"tile": tile, "n_tiles": n_tiles, "nonces": 1 << 32, "ms": ms,
+            "plain_ms": None, "ghs": (1 << 32) / ms / 1e6,
+            "bound_ms": bound, "bound_by": "operations"}
+
+
+def genesis_phase(window: int = GENESIS_WINDOW) -> dict:
+    """A known answer: the mainnet genesis header at target 0x1d00ffff,
+    swept by each entry's host loop over ``window`` nonces ending at its
+    nonce. The three agree, the host verifies the nonce, and it is the
+    genesis nonce unless the window holds an earlier hit (printed).
+    (``window``, and mining_phase's arguments, let the phase rehearse on
+    the CPU device at a small size.)"""
+    nonce = GENESIS_NONCE
+    from bitcoincashplus_tpu_torch.consensus.params import main_params
+    from bitcoincashplus_tpu_torch.consensus.pow import compact_to_target
+    from bitcoincashplus_tpu_torch.ops import miner as MI
+    from bitcoincashplus_tpu_torch.ops import pallas_sweep as PS
+    from bitcoincashplus_tpu_torch.ops import sha256_sweep as SW
+
+    header = main_params().genesis.header.with_nonce(0).serialize()
+    target, _ = compact_to_target(DIFF1_BITS)
+    start = nonce - window + 1
+    found = {}
+    for name, fn in (
+            ("sweep_exact", lambda: MI.sweep_header(
+                header, target, start, window, tile=1 << 16)),
+            ("sweep_h7", lambda: SW.sweep_header_fast(
+                header, target, start, window, tile=1 << 20)),
+            ("sweep_h7_pallas", lambda: PS.sweep_header_pallas(
+                header, target, start, window))):
+        t0 = time.monotonic()
+        found[name] = (*fn(), time.monotonic() - t0)
+    nonces = {v[0] for v in found.values()}
+    if len(nonces) != 1 or None in nonces:
+        raise AssertionError(f"genesis window: entries disagree {found}")
+    got = nonces.pop()
+    if _pow_hash(header, got) > target:
+        raise AssertionError(f"genesis window: {got} fails the host check")
+    if got != nonce:
+        log(f"genesis window: an earlier hit at {got} (host-verified)")
+    return {"nonce": got, "start": start, "window": window,
+            "entries": {k: {"hashes": v[1], "s": v[2]}
+                        for k, v in found.items()}}
+
+
+def _pallas_engine(header80, target, start_nonce=0, max_nonces=1 << 32,
+                   tile=None):
+    """sweep_header_pallas at the sweep_header signature (its tile is the
+    Pallas contract's 64 x 128 lanes; ``tile`` is ignored)."""
+    from bitcoincashplus_tpu_torch.ops import pallas_sweep as PS
+
+    return PS.sweep_header_pallas(header80, target, start_nonce, max_nonces)
+
+
+def mining_phase(workdir: str, network: str = "test",
+                 blocks: dict = MINING_BLOCKS, max_tries: int = MAX_TRIES,
+                 tiles: tuple = (1 << 16, 1 << 20, 1 << 16)) -> dict:
+    """The mining main path: generate_blocks on an on-disk ChainstateManager
+    of ``network`` (testnet: difficulty 1, nBits 0x1d00ffff) with each
+    engine in turn — exact (the supervised default), h7, pallas-h7 and
+    resident-h7 — the launch counts zeroed just before each engine and
+    read just after. ``tiles``: (exact, h7, resident) tiles."""
+    from bitcoincashplus_tpu_torch.consensus.params import select_params
+    from bitcoincashplus_tpu_torch.consensus.pow import compact_to_target
+    from bitcoincashplus_tpu_torch.mining.generate import generate_blocks
+    from bitcoincashplus_tpu_torch.mining.resident import ResidentSweep
+    from bitcoincashplus_tpu_torch.ops import dispatch
+    from bitcoincashplus_tpu_torch.ops import sha256_sweep as SW
+    from bitcoincashplus_tpu_torch.store.blockstore import BlockStore
+    from bitcoincashplus_tpu_torch.store.chainstatedb import (BlockIndexDB,
+                                                              CoinsDB)
+    from bitcoincashplus_tpu_torch.store.kvstore import KVStore
+    from bitcoincashplus_tpu_torch.validation.chainstate import \
+        ChainstateManager
+
+    params = select_params(network)
+    net = os.path.join(workdir, network)
+    os.makedirs(os.path.join(net, "blocks"), exist_ok=True)
+    kvs = [KVStore(os.path.join(net, "blocks", "index.sqlite")),
+           KVStore(os.path.join(net, "chainstate.sqlite"))]
+    store = BlockStore(net, params.netmagic)
+    cs = ChainstateManager(params, CoinsDB(kvs[1]), store,
+                           script_verifier=None, index_db=BlockIndexDB(kvs[0]))
+    cs.load_block_index()
+    spk = bytes.fromhex("76a914") + bytes(range(20)) + bytes.fromhex("88ac")
+    t_exact, t_h7, t_res = tiles
+    resident = ResidentSweep(tile=t_res, seg_tiles=8, inflight=2,
+                             kernel="h7")
+    engines = {
+        "exact": (dispatch.supervised_sweep(), t_exact, "sweep_exact"),
+        "h7": (dispatch.supervised_sweep(inner=SW.sweep_header_fast), t_h7,
+               "sweep_h7"),
+        "pallas-h7": (dispatch.supervised_sweep(inner=_pallas_engine),
+                      t_exact, "sweep_h7_pallas"),
+        "resident-h7": (dispatch.supervised_resident_sweep(resident), t_res,
+                        "sweep_h7"),
+    }
+    dispatch.reset()
+    rows = {}
+    try:
+        for name, (sweep, tile, entry) in engines.items():
+            swept = [0]
+
+            def counted(header80, target, start_nonce=0,
+                        max_nonces=1 << 32, tile=None, _sweep=sweep):
+                nonce, hashes = _sweep(header80, target, start_nonce,
+                                       max_nonces, tile)
+                swept[0] += hashes
+                return nonce, hashes
+
+            height0 = cs.tip().height
+            SW.reset_launch_counts()
+            t0 = time.monotonic()
+            hashes = generate_blocks(cs, spk, blocks[name], max_tries,
+                                     tile=tile, sweep=counted)
+            wall = time.monotonic() - t0
+            launches = dict(SW.LAUNCHES)
+            bits, ok = [], []
+            for h in hashes:
+                hdr = cs.block_index[h].header
+                bits.append(hdr.bits)
+                ok.append(_pow_hash(hdr.serialize(), hdr.nonce)
+                          <= compact_to_target(hdr.bits)[0]
+                          and cs.block_index[h] in cs.chain)
+            rows[name] = {
+                "blocks": len(hashes), "height": cs.tip().height,
+                "connected": cs.tip().height - height0 == blocks[name]
+                and len(hashes) == blocks[name] and all(ok),
+                "bits": sorted({f"{b:#010x}" for b in bits}),
+                "hashes": swept[0], "wall_s": wall,
+                "ghs": swept[0] / wall / 1e9, "entry": entry,
+                "tile": tile, "launches": launches}
+        fallbacks = dispatch.breaker("miner").snapshot()["fallback_calls"]
+        cs.flush()
+    finally:
+        resident.close()
+        store.close()
+        for kv in kvs:
+            kv.close()
+    return {"engines": rows, "fallbacks": fallbacks,
+            "height": sum(r["blocks"] for r in rows.values()),
+            "resident": resident.snapshot()}
+
+
 def dev_tip(summary: dict) -> bytes:
     return bytes.fromhex(summary["best"])
 
@@ -402,8 +919,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     try:
-        from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+        from bitcoincashplus_tpu_torch.ops import cuda_build
         from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+        from bitcoincashplus_tpu_torch.ops import sha256_sweep as SW
     except ImportError as e:
         print(f"chip_smoke: the port package is not importable ({e})",
               file=sys.stderr)
@@ -412,32 +930,92 @@ def main() -> int:
                                    for m in sys.modules):
         print("chip_smoke: the JAX package was imported", file=sys.stderr)
         return 1
-    E.set_device("cuda")
+    cuda_build.set_device("cuda")
     t_all = time.monotonic()
     card = smi("name,power.limit")
     clock_mhz = float(smi("clocks.max.sm").split()[0])
+    clock_hz = clock_mhz * 1e6
     log(f"card: {card}, max SM clock {clock_mhz:.0f} MHz, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 1. build
+    # 1. build: every csrc/*.cu in one nvcc call
     t0 = time.monotonic()
-    S._kernel_lib()
+    cuda_build.kernel_lib()
     build_s = time.monotonic() - t0
-    log(f"build: {build_s:.1f} s ({S.BUILD_INFO.get('command', 'cached')})")
-    lines = S.BUILD_INFO.get("log", "").splitlines()
-    for prev, line in zip([""] + lines, lines):
-        if "Used" in line or ("spill" in line and "_kernel" in prev):
-            log(f"ptxas: {line.strip()}")
+    info = cuda_build.BUILD_INFO
+    log(f"build: {build_s:.1f} s ({info.get('command', 'cached')})")
+    fn = ""
+    for line in info.get("log", "").splitlines():
+        if "entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+        elif "Used" in line or "spill" in line:
+            log(f"ptxas: {fn}: {line.strip()}")
+    # the sweep bound: ALU-pipe instructions a nonce, counted from the
+    # rounds and checked against the kernels' SASS (the lower count holds)
+    sass = sass_counts(info["library"])
+    ops = {}
+    for key, kernel in (("h7", "sweep_h7_kernel"),
+                        ("exact", "sweep_exact_kernel")):
+        count = sweep_ops_per_nonce(key == "exact")
+        ops[key] = count["alu"]
+        if sass is None or kernel not in sass:
+            log(f"SASS of {kernel}: cuobjdump unavailable; the rounds count "
+                f"{count} a nonce")
+            continue
+        sc = sass[kernel]
+        log(f"SASS of {kernel}: {sc['total']} instructions, "
+            f"{sc['integer']} integer, {sc['alu']} ALU-pipe only; the "
+            f"rounds count {count} a nonce (ALU ratio "
+            f"{sc['alu'] / count['alu']:.3f}, integer ratio "
+            f"{sc['integer'] / count['total']:.3f}); top {sc['top']}")
+        ops[key] = min(ops[key], sc["alu"])
 
-    # 2. kernels, at the shapes the main path gives them
+    # 2. the ECDSA kernels, at the shapes the validation path gives them
     shapes = {"w4_verify_bytes": BYTES_SHAPES,
               "w4_verify_planes": PLANES_SHAPES}
     seeds = {"w4_verify_bytes": 100, "w4_verify_planes": 200}
-    cases = {name: [kernel_case(name, B, seeds[name] + i, clock_mhz * 1e6)
+    cases = {name: [kernel_case(name, B, seeds[name] + i, clock_hz)
                     for i, B in enumerate(Bs)]
              for name, Bs in shapes.items()}
 
-    # 3. the slice (the main path; launch counts zeroed just before)
+    # 3. the sweep kernels against their plain versions
+    sweeps = {name: [sweep_case(name, tile, n, 300 + 10 * i + j, clock_hz,
+                                ops)
+                     for j, (tile, n) in enumerate(cfgs)]
+              for i, (name, cfgs) in enumerate(SWEEP_CONFIGS.items())}
+    # the exact and h7 engines' whole-space launch: compared with a hit
+    # far into it, and timed without one
+    engine_tiles = (("sweep_h7", 1 << 20), ("sweep_exact", 1 << 16))
+    whole = {name: whole_space_case(name, tile, clock_hz, ops)
+             for name, tile in engine_tiles}
+    full = {name: full_launch(name, tile, clock_hz, ops)
+            for name, tile in engine_tiles}
+    for name, r in whole.items():
+        log(f"{name} tile={r['tile']} x {r['n_tiles']} from 0, first hit "
+            f"{r['result']}: kernel {r['ms']:.3f} ms = {r['ghs']:.3f} GH/s "
+            f"over {r['nonces']} nonces, plain {r['plain_ms']:.1f} ms, "
+            f"bound {r['bound_ms']:.3f} ms, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound; equal")
+    for name, r in full.items():
+        log(f"{name} tile={r['tile']} x {r['n_tiles']} (2^32 nonces, no "
+            f"hit): kernel {r['ms']:.1f} ms = {r['ghs']:.3f} GH/s, bound "
+            f"{r['bound_ms']:.1f} ms, {100 * r['bound_ms'] / r['ms']:.1f}% "
+            f"of the bound")
+    for name, rows in sweeps.items():
+        for r in rows:
+            log(f"{name} tile={r['tile']} x {r['n_tiles']}: kernel "
+                f"{r['ms']:.3f} ms = {r['ghs']:.3f} GH/s, plain "
+                f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['ops_per_nonce']} ops a nonce), "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound; "
+                f"{r['settings']} settings equal, {r['found']} of "
+                f"{SWEEP_STARTS} starts hit, straddle {r['straddle']}")
+
+    # 4. a known answer: the mainnet genesis window
+    gen = genesis_phase()
+    log(f"genesis: {json.dumps(gen, sort_keys=True)}")
+
+    # 5. the block-validation slice (ECDSA main path; counts zeroed inside)
     workdir = os.path.join(REPO, "build", "smoke_chain")
     shutil.rmtree(workdir, ignore_errors=True)
     try:
@@ -454,7 +1032,7 @@ def main() -> int:
         path_shapes[name][B] = count
         if all(r["B"] != B for r in cases[name]):
             cases[name].append(kernel_case(
-                name, B, seeds[name] + len(cases[name]), clock_mhz * 1e6))
+                name, B, seeds[name] + len(cases[name]), clock_hz))
     for name, rows in cases.items():
         rows.sort(key=lambda r: r["B"])
         for r in rows:
@@ -464,10 +1042,54 @@ def main() -> int:
                 f"{r['degen_lanes']} degen lane(s), err {r['max_abs_err']}, "
                 f"{path_shapes[name].get(r['B'], 0)} main-path launch(es)")
 
-    # 4. report: each kernel at the shape the main path launched most
+    # 6. the mining slice (the sweeps' main path; counts zeroed inside,
+    # just before each engine, read just after)
+    mdir = os.path.join(REPO, "build", "smoke_mining")
+    shutil.rmtree(mdir, ignore_errors=True)
+    try:
+        mine = mining_phase(mdir)
+    finally:
+        shutil.rmtree(mdir, ignore_errors=True)
+    # each engine's kernel rate at its own launch shape: the exact and h7
+    # engines launch the whole nonce space, pallas-h7 its 2^25-nonce grid,
+    # resident-h7 its 2^19-nonce segments
+    rate = {"exact": full["sweep_exact"]["ghs"], "h7": full["sweep_h7"]["ghs"],
+            "pallas-h7": sweeps["sweep_h7_pallas"][0]["ghs"],
+            "resident-h7": next(r["ghs"] for r in sweeps["sweep_h7"]
+                                if r["tile"] == 1 << 16)}
+    sweep_launches = {name: 0 for name in SW.LAUNCHES}
+    for eng, r in mine["engines"].items():
+        for name, n in r["launches"].items():
+            sweep_launches[name] += n
+        ghs = rate[eng]
+        kernel_s = r["hashes"] / (ghs * 1e9)
+        r["kernel_share"] = kernel_s / r["wall_s"]
+        log(f"mining {eng}: {r['blocks']} block(s) at bits {r['bits']}, "
+            f"{r['hashes']} hashes swept in {r['wall_s']:.2f} s = "
+            f"{r['ghs']:.3f} GH/s end to end; kernel ~{kernel_s:.2f} s = "
+            f"{100 * kernel_s / r['wall_s']:.0f}% of the wall (hashes over "
+            f"the measured {ghs:.3f} GH/s); launches {r['launches']}")
+    log(f"mining: tip height {mine['height']}, miner fallbacks "
+        f"{mine['fallbacks']}, resident {json.dumps(mine['resident'])}")
+    checks = {
+        "connected": all(r["connected"] for r in mine["engines"].values()),
+        "difficulty_1": all(r["bits"] == [f"{DIFF1_BITS:#010x}"]
+                            for r in mine["engines"].values()),
+        "no_fallback": mine["fallbacks"] == 0,
+        "entry_launched": all(r["launches"][r["entry"]] > 0
+                              for r in mine["engines"].values()),
+        "every_sweep_entry": all(n > 0 for n in sweep_launches.values()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"mining checks failed: {checks}")
+
+    # 7. report: each kernel at the shape the main path launched most
     replaces = {
         "w4_verify_bytes": "bitcoincashplus_tpu/ops/secp256k1.py:912",
         "w4_verify_planes": "bitcoincashplus_tpu/ops/secp256k1.py:827",
+        "sweep_h7": "bitcoincashplus_tpu/ops/sha256_sweep.py:330",
+        "sweep_h7_pallas": "bitcoincashplus_tpu/ops/pallas_sweep.py:100",
+        "sweep_exact": "bitcoincashplus_tpu/ops/miner.py:69",
     }
     kernels = []
     for name, rows in cases.items():
@@ -486,6 +1108,30 @@ def main() -> int:
             "shapes": [{**{k: r[k] for k in ("B", "ms", "plain_ms",
                                              "bound_ms", "sigs_per_s")},
                         "launches": counts.get(r["B"], 0)} for r in rows],
+        })
+    # each sweep entry at a compared launch shape of the main path:
+    # sweep_h7 at the resident segment (its most launched), pallas at its
+    # grid, sweep_exact at the exact engine's whole-space launch
+    headline = {"sweep_h7": next(r for r in sweeps["sweep_h7"]
+                                 if r["tile"] == 1 << 16),
+                "sweep_h7_pallas": sweeps["sweep_h7_pallas"][0],
+                "sweep_exact": whole["sweep_exact"]}
+    for name, rows in sweeps.items():
+        row = headline[name]
+        compared = rows + ([whole[name]] if name in whole else [])
+        shapes_rows = compared + ([full[name]] if name in full else [])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "bitcoincashplus_tpu_torch/csrc/sha256d_sweep.cu",
+            "replaces": replaces[name], "launches": sweep_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in compared),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "tile": row["tile"],
+            "n_tiles": row["n_tiles"], "nonces": row["nonces"],
+            "shapes": [{k: r[k] for k in ("tile", "n_tiles", "nonces", "ms",
+                                          "plain_ms", "bound_ms", "ghs")}
+                       for r in shapes_rows],
         })
     log(f"validation: {sl['sigs']} sigs in {sl['wall_s']:.2f} s on the "
         f"device path = {sl['sigs_per_s']:.0f} sigs/s (pipeline depth "

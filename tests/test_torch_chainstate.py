@@ -28,7 +28,7 @@ from bitcoincashplus_tpu.validation.scriptcheck import (
 from bitcoincashplus_tpu_torch.consensus.block import CBlock
 from bitcoincashplus_tpu_torch.consensus.params import regtest_params
 from bitcoincashplus_tpu_torch.consensus.pow import compact_to_target
-from bitcoincashplus_tpu_torch.ops import dispatch
+from bitcoincashplus_tpu_torch.ops import cuda_build, dispatch
 from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
 from bitcoincashplus_tpu_torch.ops import secp256k1 as S
 from bitcoincashplus_tpu_torch.store.blockstore import BlockStore
@@ -61,7 +61,7 @@ def chain(tmp_path_factory):
 
 @pytest.fixture
 def cpu_device(monkeypatch):
-    monkeypatch.setattr(E, "_DEVICE", None)
+    monkeypatch.setattr(cuda_build, "_DEVICE", None)
     E.set_device("cpu")
     E.STATS.__init__()
     dispatch.reset()

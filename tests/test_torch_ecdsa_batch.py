@@ -14,6 +14,7 @@ import torch
 from bitcoincashplus_tpu.crypto import secp256k1 as oracle
 from bitcoincashplus_tpu.ops import ecdsa_batch as jeb
 from bitcoincashplus_tpu.script.interpreter import SigCheckRecord as JRecord
+from bitcoincashplus_tpu_torch.ops import cuda_build
 from bitcoincashplus_tpu_torch.ops import dispatch as tdispatch
 from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
 from bitcoincashplus_tpu_torch.ops import secp256k1 as S
@@ -64,7 +65,7 @@ def cpu_device(monkeypatch):
     tdispatch.reset()
     E.STATS.__init__()
     monkeypatch.setattr(E, "_KERNEL", None)
-    monkeypatch.setattr(E, "_DEVICE", None)
+    monkeypatch.setattr(cuda_build, "_DEVICE", None)
     E.set_device("cpu")
     yield
     faults.INJECTOR.reload()
