@@ -8,7 +8,8 @@
 //   - _verify_kernel_w4 (pallas_call at secp256k1.py:827), reached through
 //     ecdsa_verify_batch_pallas_w4: (64, B) window planes and (20, B)
 //     13-bit limb planes expanded on the host -> entry w4_verify_planes.
-// Both share one __device__ core (verify_lane).
+// Both share one __device__ core (verify_lane). A third entry,
+// w4_field_selftest, runs the field core alone on given operands.
 //
 // What it computes, per lane (the JAX schedule, kept so that the degen
 // plane matches the JAX kernel lane for lane):
@@ -21,28 +22,43 @@
 //   ok = acc finite and (X == r0 * Z^2, or wrap and X == rn * Z^2).
 //   Lanes with q_inf set report ok = degen = 0 and do no work.
 //
-// Limb form: 8 x 32-bit words, little-endian, every value canonical in
-// [0, p) after every operation (products through 64-bit multiply-adds).
-// Only ok, degen and the point at infinity are contract; the JAX kernel's
-// 20 x 13-bit limbs are an internal form of the TPU.
-//
 // What bounds it on an H100: integer multiply-adds. A field multiply is 64
 // 32x32->64 products plus 9 for the reduction, 146 32-bit IMADs; a squaring
-// needs only 36 distinct products, 90 IMADs (this version computes it as a
-// multiply). Squarings and multiplies: doubling 5 + 2, cheap mixed add
-// 3 + 8, cheap full add 4 + 12, final check 1 + 2; a verify with every
-// window nonzero is about 437,000 IMADs (table 19,436, each window 6,518).
-// The card does 132 SMs x 64 IMADs a clock.
-// Memory traffic is 258 bytes in and 2 bytes out per lane, nothing next to
-// that. Design for it: one lane per thread, 128 threads a block, the
-// 1.5 KB per-lane Q table in local memory (L1-resident), the G table in
-// __constant__ memory; no shared memory, no inter-thread traffic.
+// needs 36 distinct products, 90 IMADs. Squarings and multiplies: doubling
+// 5 + 2, cheap mixed add 3 + 8, cheap full add 4 + 12, final check 1 + 2;
+// a verify with every window nonzero is about 437,000 IMADs. The card does
+// 132 SMs x 64 IMADs a clock. Memory traffic is 258 bytes in and 2 bytes
+// out per lane, nothing next to that.
+//
+// The design, for a latency-bound integer kernel:
+//   - Field core (fe_*): 8 x 32-bit little-endian words; products by PTX
+//     carry chains (mad.lo.cc / madc.hi.cc / addc.cc), each row of a
+//     product split into two independent chains (the even and the odd
+//     words of a), a dedicated squaring (36 products, cross terms
+//     doubled), and the fold 2^256 == 2^32 + 977 (mod p) in the same
+//     chains. Values are lazy: any word pattern in [0, 2^256) that is
+//     congruent to the field value; fe_is_zero accepts 0 and p, and fe_eq
+//     compares canonical values. Every bound is argued beside its code.
+//   - No local memory: the point formulas are inlined with the accumulator
+//     in registers (one copy of each formula in the window loop), the
+//     per-lane Q table lives in dynamic shared memory (15 x 96 B a lane),
+//     and the G table is copied from __constant__ into shared memory once
+//     a block, so per-lane window reads are not serialised.
+//   - A team of T threads per lane (T = 1, 2 or 4, consecutive in a warp):
+//     the independent field products of each formula step ("level") are
+//     split across the team, and the 8-word results exchanged with
+//     __shfl_sync inside the team. All team threads hold the same values
+//     and the same window digits, so a team never diverges. T and the
+//     block size are launch arguments; ops/secp256k1.py picks both per
+//     bucket from chip_smoke.py's measurements.
+//
+// The CPU model of the field core and of the team schedule is
+// tests/test_torch_w4_design.py; each function below names its model.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 typedef uint32_t u32;
-typedef uint64_t u64;
 
 namespace {
 
@@ -81,31 +97,75 @@ __constant__ u32 c_gtab[16][2][8] = {
      {0xf6a26b58u, 0xc504dc9fu, 0xd896d3a5u, 0xea40af2bu, 0x28cc6defu, 0x83842ec2u, 0xa86c72a6u, 0x581e2872u}},  // 15G
 };
 
-constexpr int kThreads = 128;
 
-// ---- field arithmetic mod p = 2^256 - 2^32 - 977 (canonical values) -------
+constexpr u32 kFold = 977u;        // 2^256 == 2^32 + 977 (mod p)
+constexpr int kQWords = 15 * 24;   // a lane's Q table: jQ, j = 1..15, (X, Y, Z)
+constexpr int kGWords = 16 * 16;   // the G table in shared memory (row 0 unused)
+constexpr int kMaxBlock = 128;
+constexpr int kMaxShared = 232448; // the most dynamic shared memory a block may use
 
-// r holds r + carry_in * 2^256, known to be < 2p: reduce it into [0, p).
-// r >= p exactly when r + (2^32 + 977) overflows 2^256, and then the
-// wrapped sum is r - p.
-__device__ __forceinline__ void fe_reduce_once(u32 r[8], u32 carry_in) {
-    u32 s[8];
-    u64 t = (u64)r[0] + 977u;
-    s[0] = (u32)t;
-    t >>= 32;
-    t += (u64)r[1] + 1u;
-    s[1] = (u32)t;
-    t >>= 32;
-#pragma unroll
-    for (int i = 2; i < 8; i++) {
-        t += r[i];
-        s[i] = (u32)t;
-        t >>= 32;
-    }
-    const bool take = (carry_in | (u32)t) != 0u;
-#pragma unroll
-    for (int i = 0; i < 8; i++) r[i] = take ? s[i] : r[i];
+// ---- PTX carry-chain primitives ---------------------------------------------
+// One PTX instruction each. The carry flag (CC) flows from one call to the
+// next: a chain is a run of consecutive calls with no other carry user in
+// between (volatile asm keeps their order). Model: class Ptx.
+
+__device__ __forceinline__ u32 add_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
 }
+__device__ __forceinline__ u32 addc_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 addc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 sub_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 subc_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 subc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 mad_lo_cc(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ u32 madc_lo_cc(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ u32 mad_hi_cc(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ u32 madc_hi_cc(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ u32 madc_hi(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+
+// ---- field arithmetic mod p = 2^256 - 2^32 - 977 (lazy values) --------------
 
 __device__ __forceinline__ void fe_copy(u32 r[8], const u32 a[8]) {
 #pragma unroll
@@ -118,194 +178,382 @@ __device__ __forceinline__ void fe_set_small(u32 r[8], u32 v) {
     for (int i = 1; i < 8; i++) r[i] = 0u;
 }
 
-__device__ __forceinline__ bool fe_is_zero(const u32 a[8]) {
-    u32 acc = 0u;
+// t = a * b, exact (t < 2^512). Row i adds a * b[i] at word i in two
+// accumulators: ev the products of a's even words (row i: words i .. i+7,
+// carry into the fresh word i+8), od those of its odd words (words
+// i+1 .. i+8, carry into i+9). The two chains of a row are independent.
+// The last odd row cannot carry out: od <= a * b < 2^512.
+// Model: Field.mul512.
+__device__ __forceinline__ void mul512(u32 t[16], const u32 a[8], const u32 b[8]) {
+    u32 ev[16], od[16];
 #pragma unroll
-    for (int i = 0; i < 8; i++) acc |= a[i];
-    return acc == 0u;
-}
-
-__device__ __forceinline__ bool fe_eq(const u32 a[8], const u32 b[8]) {
-    u32 acc = 0u;
-#pragma unroll
-    for (int i = 0; i < 8; i++) acc |= a[i] ^ b[i];
-    return acc == 0u;
-}
-
-__device__ __forceinline__ void fe_add(u32 r[8], const u32 a[8], const u32 b[8]) {
-    u64 t = 0;
+    for (int k = 0; k < 16; k++) {
+        ev[k] = 0u;
+        od[k] = 0u;
+    }
 #pragma unroll
     for (int i = 0; i < 8; i++) {
-        t += (u64)a[i] + b[i];
-        r[i] = (u32)t;
-        t >>= 32;
+        ev[i] = mad_lo_cc(a[0], b[i], ev[i]);
+        ev[i + 1] = madc_hi_cc(a[0], b[i], ev[i + 1]);
+#pragma unroll
+        for (int j = 2; j < 8; j += 2) {
+            ev[i + j] = madc_lo_cc(a[j], b[i], ev[i + j]);
+            ev[i + j + 1] = madc_hi_cc(a[j], b[i], ev[i + j + 1]);
+        }
+        ev[i + 8] = addc(0u, 0u);
+        od[i + 1] = mad_lo_cc(a[1], b[i], od[i + 1]);
+        od[i + 2] = madc_hi_cc(a[1], b[i], od[i + 2]);
+#pragma unroll
+        for (int j = 3; j < 8; j += 2) {
+            od[i + j] = madc_lo_cc(a[j], b[i], od[i + j]);
+            od[i + j + 1] = madc_hi_cc(a[j], b[i], od[i + j + 1]);
+        }
+        if (i + 9 < 16) od[i + 9] = addc(0u, 0u);
     }
-    fe_reduce_once(r, (u32)t);
+    t[0] = ev[0];
+    t[1] = add_cc(ev[1], od[1]);
+#pragma unroll
+    for (int k = 2; k < 15; k++) t[k] = addc_cc(ev[k], od[k]);
+    t[15] = addc(ev[15], od[15]);  // a * b < 2^512: no carry out
 }
 
-__device__ __forceinline__ void fe_sub(u32 r[8], const u32 a[8], const u32 b[8]) {
-    u32 borrow = 0u;
+// t = a^2, exact: the 28 cross products a[i] a[j] (i < j) by the rows of
+// mul512 restricted to j > i (the same fresh carry words), summed, doubled
+// by funnel shifts, plus the 8 squares a[i]^2 at word 2i in one chain.
+// Model: Field.sqr512.
+__device__ __forceinline__ void sqr512(u32 t[16], const u32 a[8]) {
+    u32 ev[16], od[16];
 #pragma unroll
-    for (int i = 0; i < 8; i++) {
-        const u64 t = (u64)a[i] - (u64)b[i] - (u64)borrow;
-        r[i] = (u32)t;
-        borrow = (u32)(t >> 32) & 1u;
+    for (int k = 0; k < 16; k++) {
+        ev[k] = 0u;
+        od[k] = 0u;
     }
-    // a < b: the wrapped value is a - b + 2^256; add p = subtract 2^32 + 977
-    // (the wrapped value is at least 2^256 - p + 1, so this cannot borrow)
-    const u32 m = 0u - borrow;
-    u64 t = (u64)r[0] - (u64)(977u & m);
-    r[0] = (u32)t;
-    u32 b2 = (u32)(t >> 32) & 1u;
-    t = (u64)r[1] - (u64)(1u & m) - (u64)b2;
-    r[1] = (u32)t;
-    b2 = (u32)(t >> 32) & 1u;
 #pragma unroll
-    for (int i = 2; i < 8; i++) {
-        t = (u64)r[i] - (u64)b2;
-        r[i] = (u32)t;
-        b2 = (u32)(t >> 32) & 1u;
+    for (int i = 0; i < 7; i++) {
+        const int je = (i + 2) & ~1;  // the first even j > i
+        if (je <= 6) {
+            ev[i + je] = mad_lo_cc(a[je], a[i], ev[i + je]);
+            ev[i + je + 1] = madc_hi_cc(a[je], a[i], ev[i + je + 1]);
+#pragma unroll
+            for (int j = je + 2; j <= 6; j += 2) {
+                ev[i + j] = madc_lo_cc(a[j], a[i], ev[i + j]);
+                ev[i + j + 1] = madc_hi_cc(a[j], a[i], ev[i + j + 1]);
+            }
+            ev[i + 8] = addc(0u, 0u);
+        }
+        const int jo = (i + 1) | 1;  // the first odd j > i
+        od[i + jo] = mad_lo_cc(a[jo], a[i], od[i + jo]);
+        od[i + jo + 1] = madc_hi_cc(a[jo], a[i], od[i + jo + 1]);
+#pragma unroll
+        for (int j = jo + 2; j <= 7; j += 2) {
+            od[i + j] = madc_lo_cc(a[j], a[i], od[i + j]);
+            od[i + j + 1] = madc_hi_cc(a[j], a[i], od[i + j + 1]);
+        }
+        od[i + 9] = addc(0u, 0u);
     }
-}
-
-// 512-bit product t -> r = t mod p, canonical. 2^256 == 2^32 + 977.
-__device__ __forceinline__ void fe_reduce512(u32 r[8], const u32 t[16]) {
-    u64 c = (u64)t[0] + (u64)t[8] * 977u;
-    r[0] = (u32)c;
-    c >>= 32;
+    // x = the cross sum < 2^511 (word 0 is 0, ev[1] is 0): no carry out
+    u32 x[16];
+    x[0] = 0u;
+    x[1] = od[1];
+    x[2] = add_cc(ev[2], od[2]);
+#pragma unroll
+    for (int k = 3; k < 15; k++) x[k] = addc_cc(ev[k], od[k]);
+    x[15] = addc(ev[15], od[15]);
+    // t = 2x + sum a[i]^2 2^(64 i) = a^2 < 2^512: no carry out
+    t[0] = mad_lo_cc(a[0], a[0], 0u);
+    t[1] = madc_hi_cc(a[0], a[0], x[1] << 1);
 #pragma unroll
     for (int i = 1; i < 8; i++) {
-        c += (u64)t[i] + (u64)t[8 + i] * 977u + (u64)t[7 + i];
-        r[i] = (u32)c;
-        c >>= 32;
+        const u32 d0 = __funnelshift_l(x[2 * i - 1], x[2 * i], 1);
+        const u32 d1 = __funnelshift_l(x[2 * i], x[2 * i + 1], 1);
+        t[2 * i] = madc_lo_cc(a[i], a[i], d0);
+        t[2 * i + 1] = i < 7 ? madc_hi_cc(a[i], a[i], d1) : madc_hi(a[i], a[i], d1);
     }
-    c += t[15];  // hi word 7 shifted by 32 bits lands at word 8
-    // value = r + c * 2^256 with c < 2^34: fold again
-    u64 d = (u64)r[0] + c * 977u;
-    r[0] = (u32)d;
-    d >>= 32;
-    d += (u64)r[1] + c;
-    r[1] = (u32)d;
-    d >>= 32;
-#pragma unroll
-    for (int i = 2; i < 8; i++) {
-        d += r[i];
-        r[i] = (u32)d;
-        d >>= 32;
-    }
-    fe_reduce_once(r, (u32)d);
 }
 
+// r = t mod p, lazy (r < 2^256), for any t < 2^512. With lo = t[0..7],
+// hi = t[8..15]:
+//   fold 1: v = lo + hi * 977 + hi * 2^32 in two chains (the low halves of
+//           hi[i] * 977 at word i; their high halves plus hi[i] at word
+//           i + 1), then summed; v < (2^256 - 1)(2^32 + 978), so its top
+//           c = r8 + 2^32 r9 < 2^32 + 978: r9 <= 1, and r9 = 1 only with
+//           r8 <= 977;
+//   fold 2: v = v mod 2^256 + c (2^32 + 977), m = c (2^32 + 977) < 2^65 as
+//           three words (k1 = r8 + 977 r9 < 2^32 by the bound above);
+//   fold 3: a carry out of fold 2 leaves r < m < 2^65, so adding
+//           2^32 + 977 once more ends within word 2.
+// Model: Field.reduce512.
+__device__ __forceinline__ void reduce512(u32 r[8], const u32 t[16]) {
+    r[0] = mad_lo_cc(t[8], kFold, t[0]);
+#pragma unroll
+    for (int i = 1; i < 8; i++) r[i] = madc_lo_cc(t[8 + i], kFold, t[i]);
+    u32 r8 = addc(0u, 0u);
+    u32 s[9];
+    s[1] = mad_hi_cc(t[8], kFold, t[8]);
+#pragma unroll
+    for (int i = 2; i < 9; i++) s[i] = madc_hi_cc(t[7 + i], kFold, t[7 + i]);
+    const u32 s9 = addc(0u, 0u);
+    r[1] = add_cc(r[1], s[1]);
+#pragma unroll
+    for (int i = 2; i < 8; i++) r[i] = addc_cc(r[i], s[i]);
+    r8 = addc_cc(r8, s[8]);
+    const u32 r9 = addc(s9, 0u);
+    const u32 m0 = r8 * kFold;
+    const u32 k1 = r9 * kFold + r8;
+    const u32 m1 = mad_hi_cc(r8, kFold, k1);
+    const u32 m2 = addc(r9, 0u);
+    r[0] = add_cc(r[0], m0);
+    r[1] = addc_cc(r[1], m1);
+    r[2] = addc_cc(r[2], m2);
+#pragma unroll
+    for (int i = 3; i < 8; i++) r[i] = addc_cc(r[i], 0u);
+    const u32 c2 = addc(0u, 0u);
+    r[0] = mad_lo_cc(c2, kFold, r[0]);
+    r[1] = addc_cc(r[1], c2);
+    r[2] = addc(r[2], 0u);
+}
+
+// Model: Field.mul.
 __device__ __forceinline__ void fe_mul(u32 r[8], const u32 a[8], const u32 b[8]) {
     u32 t[16];
-#pragma unroll
-    for (int i = 0; i < 16; i++) t[i] = 0u;
-#pragma unroll
-    for (int i = 0; i < 8; i++) {
-        u64 c = 0;
-#pragma unroll
-        for (int j = 0; j < 8; j++) {
-            c += (u64)a[i] * b[j] + t[i + j];
-            t[i + j] = (u32)c;
-            c >>= 32;
-        }
-        t[i + 8] = (u32)c;
-    }
-    fe_reduce512(r, t);
+    mul512(t, a, b);
+    reduce512(r, t);
 }
 
-__device__ __forceinline__ void fe_sqr(u32 r[8], const u32 a[8]) { fe_mul(r, a, a); }
+// Model: Field.sqr.
+__device__ __forceinline__ void fe_sqr(u32 r[8], const u32 a[8]) {
+    u32 t[16];
+    sqr512(t, a);
+    reduce512(r, t);
+}
 
-// ---- points (Jacobian; infinity is a separate flag) -------------------------
+// r = a + b, lazy. A carry out of 2^256 folds in as 2^32 + 977; that can
+// carry once more only when the wrapped sum was within 2^32 + 977 of
+// 2^256, and then the result is below 2^33: the second fold ends at word 1.
+// Model: Field.add.
+__device__ __forceinline__ void fe_add(u32 r[8], const u32 a[8], const u32 b[8]) {
+    r[0] = add_cc(a[0], b[0]);
+#pragma unroll
+    for (int i = 1; i < 8; i++) r[i] = addc_cc(a[i], b[i]);
+    u32 c = addc(0u, 0u);
+    r[0] = mad_lo_cc(c, kFold, r[0]);
+    r[1] = addc_cc(r[1], c);
+#pragma unroll
+    for (int i = 2; i < 8; i++) r[i] = addc_cc(r[i], 0u);
+    c = addc(0u, 0u);
+    r[0] = mad_lo_cc(c, kFold, r[0]);
+    r[1] = addc(r[1], c);
+}
 
-struct Jac {
-    u32 X[8], Y[8], Z[8];
+// r = a - b, lazy. A borrow means r holds a - b + 2^256: subtract
+// 2^32 + 977. That borrows again only when the wrapped value was below
+// 2^32 + 977, leaving r >= 2^256 - 2^32 - 976 (word 1 >= 0xFFFFFFFE): the
+// second subtraction ends at word 1.
+// Model: Field.sub.
+__device__ __forceinline__ void fe_sub(u32 r[8], const u32 a[8], const u32 b[8]) {
+    r[0] = sub_cc(a[0], b[0]);
+#pragma unroll
+    for (int i = 1; i < 8; i++) r[i] = subc_cc(a[i], b[i]);
+    u32 bw = subc(0u, 0u);  // 0 or 0xFFFFFFFF
+    u32 m0 = bw & kFold, m1 = bw & 1u;
+    r[0] = sub_cc(r[0], m0);
+    r[1] = subc_cc(r[1], m1);
+#pragma unroll
+    for (int i = 2; i < 8; i++) r[i] = subc_cc(r[i], 0u);
+    bw = subc(0u, 0u);
+    m0 = bw & kFold;
+    m1 = bw & 1u;
+    r[0] = sub_cc(r[0], m0);
+    r[1] = subc(r[1], m1);
+}
+
+// a == 0 (mod p) for a lazy a < 2^256 < 2p: a is 0 or p.
+// Model: Field.is_zero.
+__device__ __forceinline__ bool fe_is_zero(const u32 a[8]) {
+    u32 z = 0u;
+    u32 np = (a[0] ^ 0xFFFFFC2Fu) | (a[1] ^ 0xFFFFFFFEu);
+#pragma unroll
+    for (int i = 0; i < 8; i++) z |= a[i];
+#pragma unroll
+    for (int i = 2; i < 8; i++) np |= ~a[i];
+    return z == 0u || np == 0u;
+}
+
+// r = a mod p in [0, p): a >= p exactly when a + 2^32 + 977 carries out
+// of 2^256, and then the wrapped sum is a - p. Model: Field.canon.
+__device__ __forceinline__ void fe_canon(u32 r[8], const u32 a[8]) {
+    u32 s[8];
+    s[0] = add_cc(a[0], kFold);
+    s[1] = addc_cc(a[1], 1u);
+#pragma unroll
+    for (int i = 2; i < 8; i++) s[i] = addc_cc(a[i], 0u);
+    const bool take = addc(0u, 0u) != 0u;
+#pragma unroll
+    for (int i = 0; i < 8; i++) r[i] = take ? s[i] : a[i];
+}
+
+// a == b (mod p), on canonical values. Model: Field.eq.
+__device__ __forceinline__ bool fe_eq(const u32 a[8], const u32 b[8]) {
+    u32 ca[8], cb[8];
+    fe_canon(ca, a);
+    fe_canon(cb, b);
+    u32 acc = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; i++) acc |= ca[i] ^ cb[i];
+    return acc == 0u;
+}
+
+// ---- the team: T threads of one lane -----------------------------------------
+
+template <int T>
+struct Team {
+    u32 t;     // this thread's index in its team, 0 .. T-1
+    u32 mask;  // the team's threads in the warp (T consecutive lanes)
 };
 
+template <int T>
+__device__ __forceinline__ Team<T> make_team() {
+    const u32 warp_lane = threadIdx.x & 31u;
+    const u32 first = warp_lane & ~(u32)(T - 1);
+    return Team<T>{warp_lane - first, ((1u << T) - 1u) << first};
+}
+
+// One field product of a level: out = a * b, or out = a^2 where b is null.
+struct Prod {
+    u32* out;
+    const u32* a;
+    const u32* b;
+};
+
+// One level: N independent products, inputs ready in every team thread.
+// T = 1 runs them in order (squares by fe_sqr). T > 1 runs them in rounds
+// of up to T: thread t computes product min(t, n - 1) of the round (fe_sqr
+// when every product of the round is a square, else fe_mul with a square
+// as a * a), and every thread receives the n results by __shfl_sync within
+// the team. A round of one product needs no exchange: every thread computed
+// it. Outputs must not alias inputs of the same level. Model: run_level.
+template <int T, int N>
+__device__ __forceinline__ void level(const Team<T>& tm, const Prod (&p)[N]) {
+    if constexpr (T == 1) {
+#pragma unroll
+        for (int k = 0; k < N; k++) {
+            if (p[k].b) fe_mul(p[k].out, p[k].a, p[k].b);
+            else fe_sqr(p[k].out, p[k].a);
+        }
+    } else {
+#pragma unroll
+        for (int c = 0; c < N; c += T) {
+            const int n = N - c < T ? N - c : T;
+            bool squares = true;
+#pragma unroll
+            for (int k = 0; k < n; k++) squares = squares && !p[c + k].b;
+            u32 a[8], b[8], r[8];
+#pragma unroll
+            for (int w = 0; w < 8; w++) {
+                const Prod& last = p[c + n - 1];
+                a[w] = last.a[w];
+                b[w] = last.b ? last.b[w] : last.a[w];
+#pragma unroll
+                for (int k = n - 2; k >= 0; k--) {
+                    const Prod& q = p[c + k];
+                    a[w] = tm.t == (u32)k ? q.a[w] : a[w];
+                    b[w] = tm.t == (u32)k ? (q.b ? q.b[w] : q.a[w]) : b[w];
+                }
+            }
+            if (squares) fe_sqr(r, a);
+            else fe_mul(r, a, b);
+            if (n == 1) {
+                fe_copy(p[c].out, r);
+            } else {
+#pragma unroll
+                for (int k = 0; k < n; k++) {
+#pragma unroll
+                    for (int w = 0; w < 8; w++)
+                        p[c + k].out[w] = __shfl_sync(tm.mask, r[w], k, T);
+                }
+            }
+        }
+    }
+}
+
+// ---- points (Jacobian; infinity is a separate flag) -------------------------
+// Each formula is a sequence of levels of independent products; the linear
+// steps between them run in every team thread.
+
 // dbl-2009-l, a = 0: the JAX pt_double. Doubling a finite point never
-// reaches infinity on secp256k1 (no 2-torsion).
-__device__ __noinline__ void pt_double(Jac& p) {
-    u32 A[8], B[8], C[8], D[8], E[8], F[8], t[8], u[8];
-    fe_sqr(A, p.X);
-    fe_sqr(B, p.Y);
-    fe_sqr(C, B);
-    fe_add(t, p.X, B);
-    fe_sqr(D, t);
+// reaches infinity on secp256k1 (no 2-torsion). Model: pt_double.
+template <int T>
+__device__ __forceinline__ void pt_double(const Team<T>& tm, u32 X[8], u32 Y[8], u32 Z[8]) {
+    u32 A[8], B[8], YZ[8], C[8], D[8], E[8], F[8], t[8], X3[8], W[8];
+    level(tm, {Prod{A, X, nullptr}, Prod{B, Y, nullptr}, Prod{YZ, Y, Z}});
+    fe_add(t, X, B);
+    fe_add(E, A, A);
+    fe_add(E, E, A);          // E = 3A
+    level(tm, {Prod{C, B, nullptr}, Prod{D, t, nullptr}, Prod{F, E, nullptr}});
     fe_add(t, A, C);
     fe_sub(D, D, t);
     fe_add(D, D, D);          // D = 2((X + B)^2 - A - C)
-    fe_add(E, A, A);
-    fe_add(E, E, A);          // E = 3A
-    fe_sqr(F, E);
     fe_add(t, D, D);
-    fe_sub(u, F, t);          // X3 = F - 2D
-    fe_mul(t, p.Y, p.Z);
-    fe_add(p.Z, t, t);        // Z3 = 2YZ
-    fe_sub(t, D, u);
-    fe_mul(t, E, t);          // E (D - X3)
+    fe_sub(X3, F, t);         // X3 = F - 2D
+    fe_sub(t, D, X3);
+    level(tm, {Prod{W, E, t}});  // E (D - X3)
     fe_add(C, C, C);
     fe_add(C, C, C);
     fe_add(C, C, C);          // 8C
-    fe_sub(p.Y, t, C);        // Y3 = E (D - X3) - 8C
-    fe_copy(p.X, u);
+    fe_sub(Y, W, C);          // Y3 = E (D - X3) - 8C
+    fe_add(Z, YZ, YZ);        // Z3 = 2YZ
+    fe_copy(X, X3);
 }
 
-// Cheap mixed add p += (qx, qy), both finite, without the same/opposite
-// case analysis. Returns the H == 0 flag (the caller's degen signal).
-__device__ __noinline__ bool pt_add_mixed_cheap(Jac& p, const u32 qx[8], const u32 qy[8]) {
-    u32 Z1Z1[8], U2[8], S2[8], H[8], R[8], HH[8], HHH[8], V[8], t[8], u[8];
-    fe_sqr(Z1Z1, p.Z);
-    fe_mul(U2, qx, Z1Z1);
-    fe_mul(t, p.Z, Z1Z1);
-    fe_mul(S2, qy, t);
-    fe_sub(H, U2, p.X);
-    fe_sub(R, S2, p.Y);
+// Cheap mixed add (X, Y, Z) += (qx, qy), both finite, without the
+// same/opposite case analysis. Returns the H == 0 flag (the caller's
+// degen signal). Model: pt_add_mixed.
+template <int T>
+__device__ __forceinline__ bool pt_add_mixed(const Team<T>& tm, u32 X[8], u32 Y[8], u32 Z[8],
+                                             const u32 qx[8], const u32 qy[8]) {
+    u32 Z1Z1[8], U2[8], ZZ1[8], S2[8], H[8], R[8], HH[8], Z3[8], HHH[8], V[8], RR[8],
+        t[8], X3[8], W[8], YH[8];
+    level(tm, {Prod{Z1Z1, Z, nullptr}});
+    level(tm, {Prod{U2, qx, Z1Z1}, Prod{ZZ1, Z, Z1Z1}});
+    fe_sub(H, U2, X);
+    level(tm, {Prod{S2, qy, ZZ1}, Prod{Z3, Z, H}, Prod{HH, H, nullptr}});
+    fe_sub(R, S2, Y);
     const bool hz = fe_is_zero(H);
-    fe_sqr(HH, H);
-    fe_mul(HHH, H, HH);
-    fe_mul(V, p.X, HH);
+    level(tm, {Prod{HHH, H, HH}, Prod{V, X, HH}, Prod{RR, R, nullptr}});
     fe_add(t, V, V);
     fe_add(t, HHH, t);
-    fe_sqr(u, R);
-    fe_sub(u, u, t);          // X3 = R^2 - (HHH + 2V)
-    fe_sub(t, V, u);
-    fe_mul(t, R, t);
-    fe_mul(V, p.Y, HHH);
-    fe_sub(p.Y, t, V);        // Y3 = R (V - X3) - Y HHH
-    fe_mul(p.Z, p.Z, H);      // Z3 = Z H
-    fe_copy(p.X, u);
+    fe_sub(X3, RR, t);        // X3 = R^2 - (HHH + 2V)
+    fe_sub(t, V, X3);
+    level(tm, {Prod{W, R, t}, Prod{YH, Y, HHH}});
+    fe_sub(Y, W, YH);         // Y3 = R (V - X3) - Y HHH
+    fe_copy(X, X3);
+    fe_copy(Z, Z3);           // Z3 = Z H
     return hz;
 }
 
-// Cheap full Jacobian add p += q, both finite; same contract as above.
-__device__ __noinline__ bool pt_add_full_cheap(Jac& p, const Jac& q) {
-    u32 Z1Z1[8], Z2Z2[8], U1[8], U2[8], S1[8], S2[8], H[8], R[8], HH[8], HHH[8],
-        V[8], t[8], u[8];
-    fe_sqr(Z1Z1, p.Z);
-    fe_sqr(Z2Z2, q.Z);
-    fe_mul(U1, p.X, Z2Z2);
-    fe_mul(U2, q.X, Z1Z1);
-    fe_mul(t, q.Z, Z2Z2);
-    fe_mul(S1, p.Y, t);
-    fe_mul(t, p.Z, Z1Z1);
-    fe_mul(S2, q.Y, t);
+// Cheap full Jacobian add (X, Y, Z) += (X2, Y2, Z2), both finite; same
+// contract as above. Model: pt_add_full.
+template <int T>
+__device__ __forceinline__ bool pt_add_full(const Team<T>& tm, u32 X[8], u32 Y[8], u32 Z[8],
+                                            const u32 X2[8], const u32 Y2[8], const u32 Z2[8]) {
+    u32 Z1Z1[8], Z2Z2[8], U1[8], U2[8], ZZ1[8], ZZ2[8], S1[8], S2[8], H[8], R[8], HH[8],
+        HHH[8], V[8], Z12[8], RR[8], t[8], X3[8], W[8], SH[8], Z3[8];
+    level(tm, {Prod{Z1Z1, Z, nullptr}, Prod{Z2Z2, Z2, nullptr}});
+    level(tm, {Prod{U1, X, Z2Z2}, Prod{U2, X2, Z1Z1}, Prod{ZZ2, Z2, Z2Z2},
+               Prod{ZZ1, Z, Z1Z1}});
     fe_sub(H, U2, U1);
+    level(tm, {Prod{S1, Y, ZZ2}, Prod{S2, Y2, ZZ1}, Prod{HH, H, nullptr}});
     fe_sub(R, S2, S1);
     const bool hz = fe_is_zero(H);
-    fe_sqr(HH, H);
-    fe_mul(HHH, H, HH);
-    fe_mul(V, U1, HH);
+    level(tm, {Prod{HHH, H, HH}, Prod{V, U1, HH}, Prod{Z12, Z, Z2}, Prod{RR, R, nullptr}});
     fe_add(t, V, V);
     fe_add(t, HHH, t);
-    fe_sqr(u, R);
-    fe_sub(u, u, t);          // X3 = R^2 - (HHH + 2V)
-    fe_sub(t, V, u);
-    fe_mul(t, R, t);
-    fe_mul(V, S1, HHH);
-    fe_sub(p.Y, t, V);        // Y3 = R (V - X3) - S1 HHH
-    fe_mul(t, p.Z, q.Z);
-    fe_mul(p.Z, t, H);        // Z3 = Z1 Z2 H
-    fe_copy(p.X, u);
+    fe_sub(X3, RR, t);        // X3 = R^2 - (HHH + 2V)
+    fe_sub(t, V, X3);
+    level(tm, {Prod{W, R, t}, Prod{SH, S1, HHH}, Prod{Z3, Z12, H}});
+    fe_sub(Y, W, SH);         // Y3 = R (V - X3) - S1 HHH
+    fe_copy(X, X3);
+    fe_copy(Z, Z3);           // Z3 = Z1 Z2 H
     return hz;
 }
 
@@ -313,53 +561,41 @@ __device__ __noinline__ bool pt_add_full_cheap(Jac& p, const Jac& q) {
 
 // 32 big-endian bytes -> 8 little-endian words, reduced mod p.
 __device__ __forceinline__ void fe_from_be32(u32 r[8], const uint8_t* b) {
+    u32 w[8];
 #pragma unroll
-    for (int w = 0; w < 8; w++) {
-        const uint8_t* q = b + 4 * (7 - w);
-        r[w] = ((u32)q[0] << 24) | ((u32)q[1] << 16) | ((u32)q[2] << 8) | (u32)q[3];
+    for (int i = 0; i < 8; i++) {
+        const uint8_t* q = b + 4 * (7 - i);
+        w[i] = ((u32)q[0] << 24) | ((u32)q[1] << 16) | ((u32)q[2] << 8) | (u32)q[3];
     }
-    fe_reduce_once(r, 0u);
+    fe_canon(r, w);
 }
 
 // 20 limbs of 13 bits at limb-major stride B -> 8 words, reduced mod p.
 // Limbs are summed (not OR-ed), so a limb wider than 13 bits still means
 // its full value at weight 2^(13 i).
 __device__ __forceinline__ void fe_from_limbs13(u32 r[8], const u32* plane, int lane, int B) {
-    u64 acc[10];
+    uint64_t acc[10];
 #pragma unroll
     for (int w = 0; w < 10; w++) acc[w] = 0;
 #pragma unroll
     for (int i = 0; i < 20; i++) {
-        const u64 v = (u64)plane[(size_t)i * B + lane] << ((13 * i) & 31);
+        const uint64_t v = (uint64_t)plane[(size_t)i * B + lane] << ((13 * i) & 31);
         acc[(13 * i) >> 5] += v & 0xFFFFFFFFull;
         acc[((13 * i) >> 5) + 1] += v >> 32;
     }
-    u32 w[10];
-    u64 c = 0;
+    u32 t[16];
+    uint64_t c = 0;
 #pragma unroll
     for (int i = 0; i < 10; i++) {
         c += acc[i];
-        w[i] = (u32)c;
+        t[i] = (u32)c;
         c >>= 32;
     }
-    // value = w[0..7] + (w[8] + 2^32 w[9]) 2^256: fold the high part
-    const u64 hi = (u64)w[8] | ((u64)w[9] << 32);
-    u64 d = (u64)w[0] + (hi & 0xFFFFFFFFull) * 977u;
-    r[0] = (u32)d;
-    d >>= 32;
-    d += (u64)w[1] + (hi & 0xFFFFFFFFull) + (hi >> 32) * 977u;
-    r[1] = (u32)d;
-    d >>= 32;
-    d += (u64)w[2] + (hi >> 32);
-    r[2] = (u32)d;
-    d >>= 32;
 #pragma unroll
-    for (int i = 3; i < 8; i++) {
-        d += w[i];
-        r[i] = (u32)d;
-        d >>= 32;
-    }
-    fe_reduce_once(r, (u32)d);
+    for (int i = 10; i < 16; i++) t[i] = 0u;
+    u32 w[8];
+    reduce512(w, t);  // t < 2^320
+    fe_canon(r, w);
 }
 
 struct ByteWindows {
@@ -380,141 +616,283 @@ struct PlaneWindows {
 
 // ---- the shared verify core -------------------------------------------------
 
-template <class W1, class W2>
-__device__ void verify_lane(const W1& win1, const W2& win2, const u32 qx[8],
-                            const u32 qy[8], const u32 r0[8], const u32 rn[8],
-                            bool wrap, uint8_t* ok_out, uint8_t* degen_out) {
-    Jac qtab[16];  // jQ for j = 1..15; entry 0 unused
-    fe_copy(qtab[1].X, qx);
-    fe_copy(qtab[1].Y, qy);
-    fe_set_small(qtab[1].Z, 1u);
-    qtab[2] = qtab[1];
-    pt_double(qtab[2]);
-    for (int j = 3; j < 16; j++) {
-        qtab[j] = qtab[j - 1];
-        pt_add_mixed_cheap(qtab[j], qx, qy);
-    }
+// A point's 24 words to / from shared memory (16-byte aligned).
+__device__ __forceinline__ void st_point(u32* dst, const u32 X[8], const u32 Y[8], const u32 Z[8]) {
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    d[0] = make_uint4(X[0], X[1], X[2], X[3]);
+    d[1] = make_uint4(X[4], X[5], X[6], X[7]);
+    d[2] = make_uint4(Y[0], Y[1], Y[2], Y[3]);
+    d[3] = make_uint4(Y[4], Y[5], Y[6], Y[7]);
+    d[4] = make_uint4(Z[0], Z[1], Z[2], Z[3]);
+    d[5] = make_uint4(Z[4], Z[5], Z[6], Z[7]);
+}
 
-    Jac acc;
-    fe_set_small(acc.X, 1u);
-    fe_set_small(acc.Y, 1u);
-    fe_set_small(acc.Z, 0u);
+__device__ __forceinline__ void ld_fe(u32 r[8], const u32* src) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    const uint4 lo = s[0], hi = s[1];
+    r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
+    r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
+}
+
+// One lane, run by its team. qtab: the lane's 15 x 24 words of shared
+// memory; gtab: the block's shared copy of c_gtab. final_r(r0, rn, wrap)
+// decodes the r candidates and the wrap flag only for the final check,
+// so that they take no registers in the window loop. Model: verify_lane.
+template <int T, class W1, class W2, class R>
+__device__ __forceinline__ void verify_lane(const Team<T>& tm, const W1& win1, const W2& win2,
+                                            const u32 qx[8], const u32 qy[8], const R& final_r,
+                                            u32* qtab, const u32* gtab, uint8_t* ok_out,
+                                            uint8_t* degen_out) {
+    u32 X[8], Y[8], Z[8];
+    fe_copy(X, qx);
+    fe_copy(Y, qy);
+    fe_set_small(Z, 1u);
+    if (tm.t == 0) st_point(qtab, X, Y, Z);
+    pt_double(tm, X, Y, Z);
+    if (tm.t == 0) st_point(qtab + 24, X, Y, Z);
+#pragma unroll 1
+    for (int j = 3; j < 16; j++) {
+        pt_add_mixed(tm, X, Y, Z, qx, qy);
+        if (tm.t == 0) st_point(qtab + 24 * (j - 1), X, Y, Z);
+    }
+    if (T > 1) __syncwarp(tm.mask);
+
+    fe_set_small(X, 1u);
+    fe_set_small(Y, 1u);
+    fe_set_small(Z, 0u);
     bool inf = true;
     bool degen = false;
 #pragma unroll 1
     for (int k = 0; k < 64; k++) {
         if (!inf) {
-            pt_double(acc);
-            pt_double(acc);
-            pt_double(acc);
-            pt_double(acc);
+#pragma unroll 1
+            for (int d = 0; d < 4; d++) pt_double(tm, X, Y, Z);
         }
         const u32 w1 = win1(k);
         if (w1 != 0u) {
-            const u32* gx = c_gtab[w1][0];
-            const u32* gy = c_gtab[w1][1];
+            u32 gx[8], gy[8];
+            ld_fe(gx, gtab + 16 * w1);
+            ld_fe(gy, gtab + 16 * w1 + 8);
             if (inf) {
-                fe_copy(acc.X, gx);
-                fe_copy(acc.Y, gy);
-                fe_set_small(acc.Z, 1u);
+                fe_copy(X, gx);
+                fe_copy(Y, gy);
+                fe_set_small(Z, 1u);
                 inf = false;
             } else {
-                u32 lx[8], ly[8];
-                fe_copy(lx, gx);
-                fe_copy(ly, gy);
-                degen |= pt_add_mixed_cheap(acc, lx, ly);
+                degen |= pt_add_mixed(tm, X, Y, Z, gx, gy);
             }
         }
         const u32 w2 = win2(k);
         if (w2 != 0u) {
+            const u32* q = qtab + 24 * (w2 - 1);
+            u32 QX[8], QY[8], QZ[8];
+            ld_fe(QX, q);
+            ld_fe(QY, q + 8);
+            ld_fe(QZ, q + 16);
             if (inf) {
-                acc = qtab[w2];
+                fe_copy(X, QX);
+                fe_copy(Y, QY);
+                fe_copy(Z, QZ);
                 inf = false;
             } else {
-                degen |= pt_add_full_cheap(acc, qtab[w2]);
+                degen |= pt_add_full(tm, X, Y, Z, QX, QY, QZ);
             }
         }
     }
 
-    u32 ZZ[8], t[8];
-    fe_sqr(ZZ, acc.Z);
-    fe_mul(t, r0, ZZ);
-    bool ok = fe_eq(acc.X, t);
-    fe_mul(t, rn, ZZ);
-    ok = ok || (wrap && fe_eq(acc.X, t));
-    *ok_out = (uint8_t)(ok && !inf);
-    *degen_out = (uint8_t)degen;
+    u32 r0[8], rn[8], ZZ[8], t0[8], t1[8];
+    bool wrap;
+    final_r(r0, rn, wrap);
+    level(tm, {Prod{ZZ, Z, nullptr}});
+    level(tm, {Prod{t0, r0, ZZ}, Prod{t1, rn, ZZ}});
+    const bool ok = fe_eq(X, t0) || (wrap && fe_eq(X, t1));
+    if (tm.t == 0) {
+        *ok_out = (uint8_t)(ok && !inf);
+        *degen_out = (uint8_t)degen;
+    }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The block's shared memory: the G table, then each lane's Q table.
+// Copies c_gtab in; every thread of the block must call it.
+__device__ __forceinline__ u32* block_tables() {
+    extern __shared__ uint4 smem[];
+    u32* g = reinterpret_cast<u32*>(smem);
+    const u32* src = &c_gtab[0][0][0];
+    for (int i = threadIdx.x; i < kGWords; i += blockDim.x) g[i] = src[i];
+    __syncthreads();
+    return g;
+}
+
+template <int T>
+__global__ void __launch_bounds__(kMaxBlock, 1)
 w4_verify_bytes_kernel(const uint8_t* __restrict__ u1m, const uint8_t* __restrict__ u2m,
                        const uint8_t* __restrict__ qxb, const uint8_t* __restrict__ qyb,
                        const uint8_t* __restrict__ qinf8, const uint8_t* __restrict__ r0b,
                        const uint8_t* __restrict__ rnb, const uint8_t* __restrict__ wrap8,
                        uint8_t* __restrict__ ok, uint8_t* __restrict__ degen, int B) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    u32* gtab = block_tables();
+    const int slot = threadIdx.x / T;
+    const int lane = blockIdx.x * (blockDim.x / T) + slot;
     if (lane >= B) return;
+    const Team<T> tm = make_team<T>();
     if (qinf8[lane]) {
-        ok[lane] = 0;
-        degen[lane] = 0;
+        if (tm.t == 0) {
+            ok[lane] = 0;
+            degen[lane] = 0;
+        }
         return;
     }
-    u32 qx[8], qy[8], r0[8], rn[8];
+    u32 qx[8], qy[8];
     fe_from_be32(qx, qxb + (size_t)lane * 32);
     fe_from_be32(qy, qyb + (size_t)lane * 32);
-    fe_from_be32(r0, r0b + (size_t)lane * 32);
-    fe_from_be32(rn, rnb + (size_t)lane * 32);
     const ByteWindows w1{u1m + (size_t)lane * 32};
     const ByteWindows w2{u2m + (size_t)lane * 32};
-    verify_lane(w1, w2, qx, qy, r0, rn, wrap8[lane] != 0, ok + lane, degen + lane);
+    const auto final_r = [=](u32 r0[8], u32 rn[8], bool& wrap) {
+        fe_from_be32(r0, r0b + (size_t)lane * 32);
+        fe_from_be32(rn, rnb + (size_t)lane * 32);
+        wrap = wrap8[lane] != 0;
+    };
+    verify_lane(tm, w1, w2, qx, qy, final_r, gtab + kGWords + kQWords * slot, gtab, ok + lane,
+                degen + lane);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int T>
+__global__ void __launch_bounds__(kMaxBlock, 1)
 w4_verify_planes_kernel(const u32* __restrict__ u1w, const u32* __restrict__ u2w,
                         const u32* __restrict__ qxl, const u32* __restrict__ qyl,
                         const uint8_t* __restrict__ qinf, const u32* __restrict__ r0l,
                         const u32* __restrict__ rnl, const uint8_t* __restrict__ wrap,
                         uint8_t* __restrict__ ok, uint8_t* __restrict__ degen, int B) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    u32* gtab = block_tables();
+    const int slot = threadIdx.x / T;
+    const int lane = blockIdx.x * (blockDim.x / T) + slot;
     if (lane >= B) return;
+    const Team<T> tm = make_team<T>();
     if (qinf[lane]) {
-        ok[lane] = 0;
-        degen[lane] = 0;
+        if (tm.t == 0) {
+            ok[lane] = 0;
+            degen[lane] = 0;
+        }
         return;
     }
-    u32 qx[8], qy[8], r0[8], rn[8];
+    u32 qx[8], qy[8];
     fe_from_limbs13(qx, qxl, lane, B);
     fe_from_limbs13(qy, qyl, lane, B);
-    fe_from_limbs13(r0, r0l, lane, B);
-    fe_from_limbs13(rn, rnl, lane, B);
     const PlaneWindows w1{u1w, lane, B};
     const PlaneWindows w2{u2w, lane, B};
-    verify_lane(w1, w2, qx, qy, r0, rn, wrap[lane] != 0, ok + lane, degen + lane);
+    const auto final_r = [=](u32 r0[8], u32 rn[8], bool& wrap_ok) {
+        fe_from_limbs13(r0, r0l, lane, B);
+        fe_from_limbs13(rn, rnl, lane, B);
+        wrap_ok = wrap[lane] != 0;
+    };
+    verify_lane(tm, w1, w2, qx, qy, final_r, gtab + kGWords + kQWords * slot, gtab, ok + lane,
+                degen + lane);
+}
+
+// The field core alone: per item i, with a = a[i], b = b[i] (8 words
+// each, any value below 2^256), out[i] holds 42 words: fe_mul(a, b),
+// fe_sqr(a), fe_add(a, b), fe_sub(a, b), fe_canon(a), then
+// fe_is_zero(a) and fe_eq(a, b) as 0 / 1.
+__global__ void w4_field_selftest_kernel(const u32* __restrict__ a, const u32* __restrict__ b,
+                                         u32* __restrict__ out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    u32 x[8], y[8], r[8];
+#pragma unroll
+    for (int w = 0; w < 8; w++) {
+        x[w] = a[(size_t)i * 8 + w];
+        y[w] = b[(size_t)i * 8 + w];
+    }
+    u32* o = out + (size_t)i * 42;
+    fe_mul(r, x, y);
+#pragma unroll
+    for (int w = 0; w < 8; w++) o[w] = r[w];
+    fe_sqr(r, x);
+#pragma unroll
+    for (int w = 0; w < 8; w++) o[8 + w] = r[w];
+    fe_add(r, x, y);
+#pragma unroll
+    for (int w = 0; w < 8; w++) o[16 + w] = r[w];
+    fe_sub(r, x, y);
+#pragma unroll
+    for (int w = 0; w < 8; w++) o[24 + w] = r[w];
+    fe_canon(r, x);
+#pragma unroll
+    for (int w = 0; w < 8; w++) o[32 + w] = r[w];
+    o[40] = fe_is_zero(x) ? 1u : 0u;
+    o[41] = fe_eq(x, y) ? 1u : 0u;
+}
+
+// Checks the team size and block size and sets the dynamic shared memory
+// of `kernel`; returns the bytes, or 0 when the launch shape is refused.
+template <class K>
+size_t prepare(K kernel, int team, int block) {
+    if (block <= 0 || block > kMaxBlock || block % 32 != 0) return 0;
+    const size_t bytes = sizeof(u32) * (kGWords + (size_t)kQWords * (block / team));
+    if (bytes > (size_t)kMaxShared) return 0;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) !=
+        cudaSuccess)
+        return 0;
+    return bytes;
+}
+
+template <int T, class... Args>
+int launch_bytes(int B, int block, cudaStream_t stream, Args... args) {
+    const size_t bytes = prepare(w4_verify_bytes_kernel<T>, T, block);
+    if (!bytes) return (int)cudaErrorInvalidValue;
+    const int lanes = block / T;
+    w4_verify_bytes_kernel<T><<<(B + lanes - 1) / lanes, block, bytes, stream>>>(args..., B);
+    return (int)cudaGetLastError();
+}
+
+template <int T, class... Args>
+int launch_planes(int B, int block, cudaStream_t stream, Args... args) {
+    const size_t bytes = prepare(w4_verify_planes_kernel<T>, T, block);
+    if (!bytes) return (int)cudaErrorInvalidValue;
+    const int lanes = block / T;
+    w4_verify_planes_kernel<T><<<(B + lanes - 1) / lanes, block, bytes, stream>>>(args..., B);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each launches on `stream`,
-// does not synchronise, and returns cudaGetLastError().
+// does not synchronise, and returns cudaGetLastError() (or
+// cudaErrorInvalidValue for a team size other than 1, 2 or 4, or a block
+// size that is not a multiple of 32 up to 128 or needs more shared memory
+// than a block may have). `team` threads verify one lane; `block` threads
+// make a block.
 extern "C" int w4_verify_bytes(const uint8_t* u1m, const uint8_t* u2m, const uint8_t* qxb,
                                const uint8_t* qyb, const uint8_t* qinf8, const uint8_t* r0b,
                                const uint8_t* rnb, const uint8_t* wrap8, uint8_t* ok,
-                               uint8_t* degen, int B, void* stream) {
+                               uint8_t* degen, int B, int team, int block, void* stream) {
     if (B <= 0) return 0;
-    const int grid = (B + kThreads - 1) / kThreads;
-    w4_verify_bytes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8, ok, degen, B);
-    return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (team) {
+        case 1: return launch_bytes<1>(B, block, s, u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8, ok, degen);
+        case 2: return launch_bytes<2>(B, block, s, u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8, ok, degen);
+        case 4: return launch_bytes<4>(B, block, s, u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8, ok, degen);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 extern "C" int w4_verify_planes(const u32* u1w, const u32* u2w, const u32* qx, const u32* qy,
                                 const uint8_t* qinf, const u32* r0, const u32* rn,
                                 const uint8_t* wrap, uint8_t* ok, uint8_t* degen, int B,
-                                void* stream) {
+                                int team, int block, void* stream) {
     if (B <= 0) return 0;
-    const int grid = (B + kThreads - 1) / kThreads;
-    w4_verify_planes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        u1w, u2w, qx, qy, qinf, r0, rn, wrap, ok, degen, B);
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (team) {
+        case 1: return launch_planes<1>(B, block, s, u1w, u2w, qx, qy, qinf, r0, rn, wrap, ok, degen);
+        case 2: return launch_planes<2>(B, block, s, u1w, u2w, qx, qy, qinf, r0, rn, wrap, ok, degen);
+        case 4: return launch_planes<4>(B, block, s, u1w, u2w, qx, qy, qinf, r0, rn, wrap, ok, degen);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+extern "C" int w4_field_selftest(const u32* a, const u32* b, u32* out, int n, void* stream) {
+    if (n <= 0) return 0;
+    w4_field_selftest_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(a, b, out, n);
     return (int)cudaGetLastError();
 }
 

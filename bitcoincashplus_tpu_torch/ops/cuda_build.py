@@ -4,11 +4,12 @@
   ``set_device("cpu")`` selects the plain PyTorch versions (the tests).
   With ``cuda`` selected and no card, ``require_device`` raises: nothing
   carries on quietly on the CPU.
-- **The build.** Every ``csrc/*.cu`` is compiled by ONE nvcc call (sm_90a)
-  into ONE shared library in the git-ignored ``build/torch_kernels/``,
-  named by the hash of the sources and flags (a stale library is never
-  loaded), at first use, and bound with ctypes. Every entry has a plain C
-  interface and returns the ``cudaError_t`` of its launch.
+- **The build.** Each ``csrc/*.cu`` is compiled (sm_90a) into its own
+  shared library in the git-ignored ``build/torch_kernels/``, named by
+  the hash of its source and the flags (a stale library is never loaded),
+  at first use: one nvcc process per source, all started together. The
+  libraries are bound with ctypes. Every entry has a plain C interface
+  and returns the ``cudaError_t`` of its launch.
 - **Fault classification.** A kernel that cannot be built, loaded or
   launched raises ``KernelUnavailable``; so does a CUDA runtime error that
   torch reports (``raise_kernel_fault``). Supervised dispatch re-raises
@@ -32,10 +33,8 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-# --threads 0: nvcc compiles the sources in parallel, one thread a CPU
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "--threads", "0"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 class KernelUnavailable(RuntimeError):
@@ -78,7 +77,7 @@ def require_device(what: str) -> torch.device:
 # ---- build and load ---------------------------------------------------------
 
 _LIB_LOCK = threading.Lock()
-_LIB = None
+_LIBS: Optional[list] = None
 _LIB_ERROR: Optional[str] = None
 BUILD_INFO: dict = {}
 
@@ -92,70 +91,86 @@ def _nvcc() -> str:
     raise KernelUnavailable("nvcc not found (PATH or $CUDA_HOME/bin)")
 
 
-def build() -> str:
-    """Compile every csrc/*.cu in one nvcc call into one library under
-    build/torch_kernels/ (the file name carries the hash of the sources
-    and flags). Returns the library path; raises KernelUnavailable."""
+def build() -> list:
+    """Compile each csrc/*.cu into its own library under
+    build/torch_kernels/ (the file name carries the hash of the source
+    and flags), one nvcc process per source, all started together.
+    Returns the library paths; raises KernelUnavailable."""
     srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    outs, procs = {}, {}
+    t0 = time.monotonic()
     for src in srcs:
-        h.update(os.path.basename(src).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         with open(src, "rb") as f:
             h.update(f.read())
-    out = os.path.join(BUILD_DIR, f"kernels_{h.hexdigest()[:16]}.so")
-    BUILD_INFO["library"] = out
-    if os.path.exists(out):
-        BUILD_INFO["cached"] = True
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    BUILD_INFO.update(seconds=time.monotonic() - t0, cached=False,
-                      command=" ".join(cmd),
-                      log=(proc.stdout + proc.stderr)[-16000:])
-    if proc.returncode != 0:
-        raise KernelUnavailable(
-            f"nvcc failed ({proc.returncode}): {proc.stderr[-2000:]}")
-    os.replace(tmp, out)
-    return out
+        stem = os.path.splitext(os.path.basename(src))[0]
+        out = os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
+        outs[src] = out
+        if not os.path.exists(out):
+            cmd = [nvcc, *NVCC_FLAGS, "-o", f"{out}.{os.getpid()}.tmp", src]
+            procs[src] = (cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    logs, failed = [], []
+    for src, (cmd, proc) in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+            log += "\nnvcc timed out after 900 s"
+        logs.append(f"$ {' '.join(cmd)}\n{log}")
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode}): "
+                          f"{log[-2000:]}")
+        else:
+            os.replace(f"{outs[src]}.{os.getpid()}.tmp", outs[src])
+    BUILD_INFO.update(libraries=dict(outs), cached=not procs,
+                      seconds=time.monotonic() - t0, log="\n".join(logs))
+    if failed:
+        raise KernelUnavailable("nvcc failed: " + "; ".join(failed))
+    return list(outs.values())
 
 
-def kernel_lib() -> ctypes.CDLL:
-    """Build (once per process) and load the kernel library. A failure is
-    remembered and raised again on every later call."""
-    global _LIB, _LIB_ERROR
+def kernel_libs() -> list:
+    """Build (once per process) and load the kernel libraries. A failure
+    is remembered and raised again on every later call."""
+    global _LIBS, _LIB_ERROR
     with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
+        if _LIBS is not None:
+            return _LIBS
         if _LIB_ERROR is not None:
             raise KernelUnavailable(_LIB_ERROR)
         try:
-            lib = ctypes.CDLL(build())
+            libs = [ctypes.CDLL(path) for path in build()]
         except (KernelUnavailable, OSError, subprocess.SubprocessError) as e:
             _LIB_ERROR = f"{type(e).__name__}: {e}"
             raise KernelUnavailable(_LIB_ERROR) from e
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-        return lib
+        _LIBS = libs
+        return libs
 
 
 def entry(name: str, argtypes: list):
-    """The C entry ``name`` of the kernel library, typed: ``argtypes`` as
-    ctypes types (c_void_p for every pointer and the stream), returning
+    """The C entry ``name`` of the kernel libraries, typed: ``argtypes``
+    as ctypes types (c_void_p for every pointer and the stream), returning
     the launch's cudaError_t as an int."""
-    fn = getattr(kernel_lib(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    for lib in kernel_libs():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            return fn
+    raise KernelUnavailable(f"no kernel library has the entry {name}")
 
 
 def check_launch(name: str, rc: int) -> None:
     """Raise KernelUnavailable when a C entry returned a CUDA error."""
     if rc != 0:
-        msg = kernel_lib().cuda_error_string(rc).decode()
+        fn = entry("cuda_error_string", [ctypes.c_int])
+        fn.restype = ctypes.c_char_p
+        msg = fn(rc).decode()
         raise KernelUnavailable(f"{name} launch failed: {msg}")
 
 

@@ -12,7 +12,9 @@ Port of the w4 part of the reference's ops/secp256k1.py. Two layers:
   :827, behind ``ecdsa_verify_batch_pallas_w4``) through the entry
   ``w4_verify_planes``. It is bound by integer multiply-adds (at most
   about 437,000 32-bit IMADs per verify; see the source note in the .cu
-  file), and runs one lane per thread with the Q table in local memory.
+  file): a field core of PTX carry chains, the tables in shared memory,
+  and a team of T threads per lane, T and the block size picked per
+  bucket by ``W4_LAUNCH``.
 - **The plain version**: the same verify in PyTorch tensor ops, used for
   tensors on the CPU (the tests) and as the yardstick the kernel is held
   against on the card. It carries field elements as (..., 16) int64
@@ -438,19 +440,37 @@ def bits_to_windows_np(scalar_bytes: np.ndarray, bucket: int) -> np.ndarray:
 
 # ---- the CUDA kernel: launch ------------------------------------------------
 
-_ENTRY_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+_ENTRY_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+# The launch shape per bucket: (most lanes, team size T, threads a block);
+# the first row whose lane count covers B applies. T threads of a team
+# verify one lane (1, 2 or 4; see the .cu file). Chosen from
+# chip_smoke.py's timing of every compared shape at each T and block size
+# on the H100 (PERF.md, K4/K5): the fastest T whose results were equal on
+# every compare.
+W4_LAUNCH = ((2048, 4, 128), (8192, 2, 64), (None, 1, 128))
 
 
-def _launch(name: str, inputs: list, B: int) -> tuple:
+def launch_shape(B: int) -> tuple:
+    """(team size, threads a block) of a w4 launch of B lanes."""
+    return next((team, block) for most, team, block in W4_LAUNCH
+                if most is None or B <= most)
+
+
+def _launch(name: str, inputs: list, B: int, team: int | None = None,
+            block: int | None = None) -> tuple:
     """Launch one entry on the current stream: inputs are contiguous CUDA
-    tensors; allocates and returns the (ok, degen) uint8 outputs."""
+    tensors; allocates and returns the (ok, degen) uint8 outputs. team and
+    block default to launch_shape(B)."""
+    if team is None:
+        team, block = launch_shape(B)
     fn = cuda_build.entry(name, _ENTRY_ARGS)
     dev = inputs[0].device
     ok = torch.empty(B, dtype=torch.uint8, device=dev)
     degen = torch.empty(B, dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(*[t.data_ptr() for t in inputs], ok.data_ptr(), degen.data_ptr(),
-            B, stream)
+            B, team, block, stream)
     cuda_build.check_launch(name, rc)
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[(name, B)] = LAUNCH_SHAPES.get((name, B), 0) + 1

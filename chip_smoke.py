@@ -6,18 +6,28 @@ NVIDIA card.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build   — compile every csrc/*.cu (w4_verify.cu, sha256d_sweep.cu) in
-             one nvcc call (sm_90a) from this checkout; print the build
-             seconds, ptxas' registers and spills per kernel, and the
-             sweep kernels' SASS instruction counts (cuobjdump) beside the
-             counts taken from their rounds.
-2. ecdsa   — each ECDSA entry at the shapes the validation path gives it
-             (w4_verify_bytes at B = 1024, 2048, 8192, 16384;
-             w4_verify_planes at B = 32, 128) on seeded valid and invalid
+1. build   — compile each csrc/*.cu (w4_verify.cu, sha256d_sweep.cu) by
+             its own nvcc (sm_90a), all started together, from this
+             checkout; print the build seconds, ptxas' registers, stack
+             frame and spills per kernel, the w4 kernels' SASS local
+             loads and stores (LDL / STL: the phase fails on any, or on a
+             stack frame or spill), and the sweep kernels' SASS
+             instruction counts (cuobjdump) beside the counts taken from
+             their rounds.
+2. ecdsa   — the w4 field core alone (entry w4_field_selftest: fe_mul,
+             fe_sqr, fe_add, fe_sub, fe_canon, the zero test and fe_eq on
+             FIELD_EDGES x FIELD_EDGES and 4096 seeded random pairs)
+             against Python ints, error 0. Then each ECDSA entry at
+             B = 32, 128, 1024, 2048, 8192 and 16384 (the validation
+             path's shapes among them) on seeded valid and invalid
              signatures, wrap lanes, q_inf lanes and crafted degenerate
-             lanes, held against its plain PyTorch version on the card
-             (degen equal everywhere, ok equal on non-degen lanes) and the
-             verdicts after the host re-check against the host oracle.
+             lanes, at every team size T and block size, held against its
+             plain PyTorch version on the card (degen equal everywhere, ok
+             equal on non-degen lanes) and the verdicts after the host
+             re-check against the host oracle; one line per (shape, T)
+             with the time at each block size, and the launch shape the
+             wrapper's table (ops/secp256k1.W4_LAUNCH) picks beside the
+             fastest measured.
 3. sweeps  — each sweep entry (sweep_h7 at tile 2^20 and at the resident
              loop's 2^16 x 8, sweep_h7_pallas at 64 x 128 lanes x 4096
              tiles, sweep_exact at tile 2^16) against its plain version:
@@ -41,8 +51,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              (submitblock shape); dispatch_packed(backend="device") on
              8190 of the chain's signatures (the native engine's slice
              width). Launch counts are zeroed just before and read just
-             after, per entry and per shape. Then the same chain on the
-             CPU engine: the coin digest and best block must match. Any
+             after, per entry and per shape; the blocking settle wait
+             (E.STATS.device_seconds) beside the wall. Then the same chain
+             on the CPU engine: the coin digest and best block must match. Any
              shape the main path launched that phase 2 did not cover
              is then held against the plain version the same way.
 6. mining  — the mining main path at difficulty 1 (testnet, nBits
@@ -76,8 +87,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CHAIN_SIGS = 16_000          # bench.py's reindex size
 PACKED_LANES = 8190          # the native engine's dispatch slice
 PIPELINE_DEPTH = 8
-BYTES_SHAPES = (1024, 2048, 8192, 16384)  # 2048: the LanePacker's bucket
-PLANES_SHAPES = (32, 128)
+# both w4 entries at every shape: 2048 is the LanePacker's bucket, 8192
+# dispatch_packed's, 32 and 128 the plane entry's
+W4_SHAPES = (32, 128, 1024, 2048, 8192, 16384)
+W4_TEAMS = (1, 2, 4)          # the team sizes the .cu compiles
+W4_BLOCKS = (32, 64, 128)     # threads a block tried at each team size
 # H100: 132 SMs; 64 32-bit integer multiply-adds per SM per clock
 # (CUDA C++ Programming Guide, arithmetic instruction throughput, cc 9.0)
 SMS = 132
@@ -91,6 +105,16 @@ IMAD_PER_FSQR = 2 * (36 + 9)
 # (squarings, multiplies) of each formula in csrc/w4_verify.cu
 SQR_MUL_DOUBLE, SQR_MUL_MADD, SQR_MUL_FADD, SQR_MUL_FINAL = \
     (5, 2), (3, 8), (4, 12), (1, 2)
+# Operands of the w4 field core's self-test (and of its CPU model,
+# tests/test_torch_w4_design.py) that random signatures never reach: the
+# ends of the lazy range [0, 2^256), p and its neighbours, the fold
+# constant 2^32 + 977, words of all ones and zeros
+_P = 2**256 - 2**32 - 977
+FIELD_EDGES = [0, 1, 2, 977, 2**32 + 977, 2**32 - 1, _P - 1, _P, _P + 1,
+               2**256 - 2**32 - 978, 2**256 - 1, 2**256 - 2, 2**255,
+               (2**32 - 1) << 224, int("ffffffff00000000" * 4, 16),
+               int("00000000ffffffff" * 4, 16)]
+FIELD_RANDOM_PAIRS = 4096
 # H100: 64 32-bit integer operations (IADD3, LOP3, SHF, PRMT, ISETP) per
 # SM per clock (CUDA C++ Programming Guide, arithmetic instruction
 # throughput, cc 9.0)
@@ -261,8 +285,9 @@ def host_oracle(recs):
 
 def kernel_case(entry: str, B: int, seed: int, clock_hz: float,
                 device: str = "cuda") -> dict:
-    """One entry at one shape: kernel vs plain on the card, verdicts after
-    the host re-check vs the oracle, times and bound. (On a CPU device the
+    """One entry at one shape: the kernel at every team size and block
+    size against the plain version on the card, verdicts after the host
+    re-check against the oracle, times and bound. (On a CPU device the
     wrapper itself takes the plain version: a rehearsal of the checks.)"""
     import numpy as np
     import torch
@@ -295,46 +320,71 @@ def kernel_case(entry: str, B: int, seed: int, clock_hz: float,
     wrapper = (S.ecdsa_verify_batch_pallas_w4_bytes if be
                else S.ecdsa_verify_batch_pallas_w4)
     plain = S.w4_verify_bytes_plain if be else S.w4_verify_planes_plain
+    # the byte wrapper takes multiples of 1024 lanes (the reference's
+    # contract); its entry is launched directly at the smaller shapes
+    wrapped = not be or B % 1024 == 0
 
-    ok_k, dg_k = wrapper(*tens)
     plain_ms, (ok_p, dg_p) = time_once(lambda: plain(*tens), dev)
-    ok_k, dg_k = ok_k.cpu().numpy(), dg_k.cpu().numpy()
     ok_p, dg_p = ok_p.cpu().numpy(), dg_p.cpu().numpy()
-    err = max(int(np.abs(ok_k.astype(int) - ok_p.astype(int))[~dg_k].max(
-        initial=0)), int(np.abs(dg_k.astype(int) - dg_p.astype(int)).max()))
-    if not np.array_equal(dg_k, dg_p):
-        raise AssertionError(f"{entry} B={B}: degen planes differ at "
-                             f"{np.nonzero(dg_k != dg_p)[0][:10]}")
-    nd = ~dg_k
-    if not np.array_equal(ok_k[nd], ok_p[nd]):
-        raise AssertionError(f"{entry} B={B}: ok differs on non-degen lanes "
-                             f"{np.nonzero((ok_k != ok_p) & nd)[0][:10]}")
-    # verdicts after the host re-check of degen lanes, on the record lanes
+    oracle = host_oracle(recs)
     crafted = set(kinds["q_inf"]) | set(kinds["wrap_on"]) | \
         set(kinds["wrap_off"])
-    oracle = host_oracle(recs)
-    final = np.where(dg_k[:n], oracle, ok_k[:n])
     plain_lanes = np.array([i not in crafted for i in range(n)])
-    if not np.array_equal(final[plain_lanes], oracle[plain_lanes]):
-        raise AssertionError(f"{entry} B={B}: verdicts differ from the "
-                             "oracle")
-    if ok_k[kinds["q_inf"]].any() or dg_k[kinds["q_inf"]].any():
-        raise AssertionError(f"{entry} B={B}: a q_inf lane reported")
-    if ok_k[n:].any():
-        raise AssertionError(f"{entry} B={B}: a padding lane reported")
-    # degen lanes carry garbage by contract: the gate is read on the rest
-    won = [i for i in kinds["wrap_on"] if not dg_k[i]]
-    woff = [i for i in kinds["wrap_off"] if not dg_k[i]]
-    if not np.array_equal(ok_k[won], oracle[won]) or ok_k[woff].any():
-        raise AssertionError(f"{entry} B={B}: wrap gate wrong")
-    n_degen = int(dg_k.sum())
-    if n_degen < 1:
-        raise AssertionError(f"{entry} B={B}: no degenerate lane flagged")
 
+    def check(ok_k, dg_k, what: str) -> tuple:
+        """Hold one kernel result against the plain version and the
+        oracle; returns (max_abs_err, degen lanes)."""
+        ok_k, dg_k = ok_k.cpu().numpy(), dg_k.cpu().numpy()
+        err = max(int(np.abs(ok_k.astype(int) - ok_p.astype(int))[~dg_k].max(
+            initial=0)), int(np.abs(dg_k.astype(int) - dg_p.astype(int)).max()))
+        where = f"{entry} B={B} {what}"
+        if not np.array_equal(dg_k, dg_p):
+            raise AssertionError(f"{where}: degen planes differ at "
+                                 f"{np.nonzero(dg_k != dg_p)[0][:10]}")
+        nd = ~dg_k
+        if not np.array_equal(ok_k[nd], ok_p[nd]):
+            raise AssertionError(f"{where}: ok differs on non-degen lanes "
+                                 f"{np.nonzero((ok_k != ok_p) & nd)[0][:10]}")
+        # verdicts after the host re-check of degen lanes, on the record lanes
+        final = np.where(dg_k[:n], oracle, ok_k[:n])
+        if not np.array_equal(final[plain_lanes], oracle[plain_lanes]):
+            raise AssertionError(f"{where}: verdicts differ from the oracle")
+        if ok_k[kinds["q_inf"]].any() or dg_k[kinds["q_inf"]].any():
+            raise AssertionError(f"{where}: a q_inf lane reported")
+        if ok_k[n:].any() or dg_k[n:].any():
+            raise AssertionError(f"{where}: a padding lane reported")
+        # degen lanes carry garbage by contract: the gate is read on the rest
+        won = [i for i in kinds["wrap_on"] if not dg_k[i]]
+        woff = [i for i in kinds["wrap_off"] if not dg_k[i]]
+        if not np.array_equal(ok_k[won], oracle[won]) or ok_k[woff].any():
+            raise AssertionError(f"{where}: wrap gate wrong")
+        n_degen = int(dg_k.sum())
+        if n_degen < 1:
+            raise AssertionError(f"{where}: no degenerate lane flagged")
+        return err, n_degen
+
+    times, errs = {}, []
     if dev.type == "cuda":
-        ms = time_cuda(lambda: wrapper(*tens), 20 if B <= 8192 else 10)
+        for team in W4_TEAMS:
+            for block in W4_BLOCKS:
+                def launch(team=team, block=block):
+                    ok, dg = S._launch(entry, tens, B, team, block)
+                    return ok.view(torch.bool), dg.view(torch.bool)
+
+                err, n_degen = check(*launch(), f"T={team} block={block}")
+                errs.append(err)
+                times[team, block] = time_cuda(launch,
+                                               20 if B <= 8192 else 10)
+        shape = S.launch_shape(B)
+        if wrapped:
+            errs.append(check(*wrapper(*tens), "wrapper")[0])
+        ms = times[shape]
     else:
-        ms = time_once(lambda: wrapper(*tens), dev)[0]
+        shape = None
+        run = (lambda: wrapper(*tens)) if wrapped else (lambda: plain(*tens))
+        ms, out = time_once(run, dev)
+        err, n_degen = check(*out, "wrapper")
+        errs.append(err)
     if be:
         u1w = S._expand_nibble_windows(tens[0].cpu()).T.numpy()
         u2w = S._expand_nibble_windows(tens[1].cpu()).T.numpy()
@@ -348,8 +398,67 @@ def kernel_case(entry: str, B: int, seed: int, clock_hz: float,
     return {"B": B, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "imads": imads, "max_abs_err": err, "degen_lanes": n_degen,
-            "sigs_per_s": B / (ms / 1e3)}
+            "imads": imads, "max_abs_err": max(errs), "degen_lanes": n_degen,
+            "sigs_per_s": B / (ms / 1e3), "shape": shape,
+            "times": {f"{t}x{b}": v for (t, b), v in times.items()}}
+
+
+def field_selftest(seed: int = 7) -> dict:
+    """The w4 kernel's field core alone (entry w4_field_selftest) on every
+    pair of FIELD_EDGES and FIELD_RANDOM_PAIRS seeded random pairs in the
+    lazy range [0, 2^256), against Python ints: each result congruent mod p
+    (and below 2^256, as 8 words are), fe_canon exact, the zero test and
+    fe_eq exact. Raises on any error; returns the counts."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import cuda_build
+
+    P = _P
+    rng = random.Random(seed)
+    pairs = [(a, b) for a in FIELD_EDGES for b in FIELD_EDGES]
+    pairs += [(rng.getrandbits(256), rng.getrandbits(256))
+              for _ in range(FIELD_RANDOM_PAIRS)]
+    # a few lanes of p's multiples and of equal residues, for the zero
+    # test and fe_eq
+    pairs += [(P, 0), (0, P), (P + 5, 5), (5, P + 5)]
+
+    def to_words(vals):
+        w = np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+                      for v in vals], np.uint32)
+        return torch.from_numpy(w.view(np.int32)).cuda()
+
+    a = to_words([x for x, _ in pairs])
+    b = to_words([y for _, y in pairs])
+    out = torch.empty(len(pairs), 42, dtype=torch.int32, device="cuda")
+    fn = cuda_build.entry("w4_field_selftest", [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_void_p])
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), len(pairs),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch("w4_field_selftest", rc)
+    res = out.cpu().numpy().view(np.uint32).astype(object)
+    bad = []
+    for i, (x, y) in enumerate(pairs):
+        row = res[i]
+        vals = [sum(int(row[8 * k + j]) << (32 * j) for j in range(8))
+                for k in range(5)]
+        want = [x * y, x * x, x + y, x - y]
+        for name, got, exp in zip(("mul", "sqr", "add", "sub"), vals, want):
+            if (got - exp) % P:
+                bad.append((name, hex(x), hex(y)))
+        if vals[4] != x % P:
+            bad.append(("canon", hex(x)))
+        if int(row[40]) != int(x % P == 0):
+            bad.append(("is_zero", hex(x)))
+        if int(row[41]) != int((x - y) % P == 0):
+            bad.append(("eq", hex(x), hex(y)))
+    if bad:
+        raise AssertionError(f"w4_field_selftest: {len(bad)} errors, "
+                             f"first {bad[:5]}")
+    return {"pairs": len(pairs), "edge_pairs": len(FIELD_EDGES) ** 2,
+            "random_pairs": FIELD_RANDOM_PAIRS, "errors": 0}
 
 
 def slice_phase(workdir: str, sigs: int = CHAIN_SIGS,
@@ -417,6 +526,7 @@ def slice_phase(workdir: str, sigs: int = CHAIN_SIGS,
         "launches_planes": launches["w4_verify_planes"] > 0,
         "no_cpu_fallback": stats["cpu_fallback_sigs"] == 0,
         "no_fault_fallback": stats["fault_fallback_sigs"] == 0,
+        "no_kat_failures": stats["kat_failures"] == 0,
         "breaker_healthy": healthy,
     }
     return {"gen": {k: v for k, v in gen.items() if "tip" not in k},
@@ -427,8 +537,8 @@ def slice_phase(workdir: str, sigs: int = CHAIN_SIGS,
             "launch_shapes": launch_shapes,
             "stats": {k: stats[k] for k in (
                 "dispatches", "sigs_verified", "cpu_fallback_sigs",
-                "fault_fallback_sigs", "degenerate_rechecks",
-                "reject_confirm_sigs", "buckets_used")},
+                "fault_fallback_sigs", "kat_failures", "degenerate_rechecks",
+                "reject_confirm_sigs", "device_seconds", "buckets_used")},
             "packed_false": int((~packed).sum()), "checks": checks}
 
 
@@ -489,17 +599,61 @@ def sweep_ops_per_nonce(exact: bool) -> dict:
 
 # instructions only the integer ALU pipe executes (IADD3 may issue there
 # too, and IMAD on the FMA pipe)
+W4_KERNELS = ("w4_verify_bytes_kernel", "w4_verify_planes_kernel",
+              "w4_field_selftest_kernel")
+SWEEP_KERNELS = ("sweep_h7_kernel", "sweep_exact_kernel")
 _ALU_ONLY = ("SHF", "SHL", "SHR", "LOP3", "PRMT", "ISETP")
 _NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
             "ATOM", "RED", "S2R", "NOP", "BSSY", "BSYNC", "WARPSYNC", "LDC",
             "CS2R", "CALL", "RET", "YIELD", "MEMBAR", "CCTL", "MOV"}
 
 
-def sass_counts(lib: str) -> dict | None:
-    """Opcode counts of each sweep kernel in the built library
-    (``cuobjdump -sass``), or None where the toolkit has no cuobjdump.
-    The nonce loop is not unrolled, so a kernel's instructions are one
-    nonce's hash plus the loop's own few."""
+def _kernel_key(name: str) -> str:
+    """A mangled kernel name -> the name of W4_KERNELS or SWEEP_KERNELS it
+    holds, ``kernel<T>`` for a template instance (the name itself when it
+    holds none)."""
+    import re
+
+    key = next((k for k in W4_KERNELS + SWEEP_KERNELS if k in name), None)
+    t = key and re.search(key + r"ILi(\d+)E", name)
+    return f"{key}<{t.group(1)}>" if t else (key or name)
+
+
+def ptxas_report(log_text: str) -> dict:
+    """Per kernel, from nvcc's ``-Xptxas -v`` output: registers, stack
+    frame bytes and spill store / load bytes. Template instances are named
+    ``kernel<T>``."""
+    import re
+
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)", line)
+        if m:
+            fn = _kernel_key(m.group(1))
+            out.setdefault(fn, {"registers": None, "stack": 0,
+                                "spill_stores": 0, "spill_loads": 0})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn].update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_counts(lib: str, kernels: tuple) -> dict | None:
+    """Opcode counts of each kernel of a built library whose mangled name
+    holds one of ``kernels`` (``cuobjdump -sass``; one entry per name, a
+    template's instances summed apart by their mangled names), or None
+    where the toolkit has no cuobjdump. The sweeps' nonce loop is not
+    unrolled, so a sweep kernel's instructions are one nonce's hash plus
+    the loop's own few."""
     import collections
     import re
 
@@ -514,9 +668,9 @@ def sass_counts(lib: str) -> dict | None:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            cur = next((k for k in ("sweep_h7_kernel", "sweep_exact_kernel")
-                        if k in name), None)
-            if cur:
+            cur = None
+            if any(k in name for k in kernels):
+                cur = _kernel_key(name)
                 funcs[cur] = collections.Counter()
             continue
         m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
@@ -529,6 +683,8 @@ def sass_counts(lib: str) -> dict | None:
                       if op not in _NOT_ALU and not op.startswith("U"))
         result[name] = {"total": sum(ops.values()), "integer": integer,
                         "alu": sum(ops[op] for op in _ALU_ONLY),
+                        "local": sum(n for op, n in ops.items()
+                                     if op in ("LDL", "STL")),
                         "top": ops.most_common(8)}
     return result
 
@@ -938,27 +1094,43 @@ def main() -> int:
     log(f"card: {card}, max SM clock {clock_mhz:.0f} MHz, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 1. build: every csrc/*.cu in one nvcc call
+    # 1. build: each csrc/*.cu by its own nvcc, all started together
     t0 = time.monotonic()
-    cuda_build.kernel_lib()
+    cuda_build.kernel_libs()
     build_s = time.monotonic() - t0
     info = cuda_build.BUILD_INFO
-    log(f"build: {build_s:.1f} s ({info.get('command', 'cached')})")
-    fn = ""
-    for line in info.get("log", "").splitlines():
-        if "entry function" in line:
-            fn = line.split("'")[1] if "'" in line else line
-        elif "Used" in line or "spill" in line:
-            log(f"ptxas: {fn}: {line.strip()}")
+    log(f"build: {build_s:.1f} s, {len(info['libraries'])} libraries"
+        f"{' (cached)' if info['cached'] else ''}")
+    ptxas = ptxas_report(info.get("log", ""))
+    for fn, r in sorted(ptxas.items()):
+        log(f"ptxas: {fn}: {r}")
+    sass = {}
+    for lib in info["libraries"].values():
+        sass.update(sass_counts(lib, W4_KERNELS + SWEEP_KERNELS) or {})
+    # the w4 kernels keep every value in registers and shared memory: no
+    # stack frame, no spill, no local load or store in their SASS
+    w4 = {fn: r for fn, r in ptxas.items() if "w4_" in fn}
+    w4_sass = {k: v for k, v in sass.items() if k.startswith(W4_KERNELS)}
+    if len(w4) != 2 * len(W4_TEAMS) + 1 or \
+            len(w4_sass) != 2 * len(W4_TEAMS) + 1:
+        raise AssertionError(f"w4 kernels missing from the build report: "
+                             f"ptxas {sorted(w4)}, SASS {sorted(w4_sass)}")
+    local = {k: v["local"] for k, v in w4_sass.items()}
+    for k, v in sorted(w4_sass.items()):
+        log(f"SASS of {k}: {v['total']} instructions, {v['local']} LDL/STL; "
+            f"top {v['top']}")
+    if any(r["stack"] or r["spill_stores"] or r["spill_loads"]
+           for r in w4.values()) or any(local.values()):
+        raise AssertionError(f"w4 kernels use local memory: ptxas {w4}, "
+                             f"SASS LDL/STL {local}")
     # the sweep bound: ALU-pipe instructions a nonce, counted from the
     # rounds and checked against the kernels' SASS (the lower count holds)
-    sass = sass_counts(info["library"])
     ops = {}
     for key, kernel in (("h7", "sweep_h7_kernel"),
                         ("exact", "sweep_exact_kernel")):
         count = sweep_ops_per_nonce(key == "exact")
         ops[key] = count["alu"]
-        if sass is None or kernel not in sass:
+        if kernel not in sass:
             log(f"SASS of {kernel}: cuobjdump unavailable; the rounds count "
                 f"{count} a nonce")
             continue
@@ -970,13 +1142,28 @@ def main() -> int:
             f"{sc['integer'] / count['total']:.3f}); top {sc['top']}")
         ops[key] = min(ops[key], sc["alu"])
 
-    # 2. the ECDSA kernels, at the shapes the validation path gives them
-    shapes = {"w4_verify_bytes": BYTES_SHAPES,
-              "w4_verify_planes": PLANES_SHAPES}
+    # 2. the w4 field core alone, then the ECDSA kernels at every shape,
+    # team size and block size
+    selftest = field_selftest()
+    log(f"w4_field_selftest: {json.dumps(selftest)}")
     seeds = {"w4_verify_bytes": 100, "w4_verify_planes": 200}
     cases = {name: [kernel_case(name, B, seeds[name] + i, clock_hz)
-                    for i, B in enumerate(Bs)]
-             for name, Bs in shapes.items()}
+                    for i, B in enumerate(W4_SHAPES)]
+             for name in seeds}
+    for name, rows in cases.items():
+        for r in rows:
+            fastest = min(r["times"], key=r["times"].get)
+            for team in W4_TEAMS:
+                at = ", ".join(f"block {b} {r['times'][f'{team}x{b}']:.3f} ms"
+                               for b in W4_BLOCKS)
+                log(f"{name} B={r['B']} T={team}: {at}; equal to the plain "
+                    f"version and the oracle")
+            log(f"{name} B={r['B']}: the table's launch T x block = "
+                f"{r['shape'][0]}x{r['shape'][1]} at {r['ms']:.3f} ms, "
+                f"fastest measured {fastest} at "
+                f"{r['times'][fastest]:.3f} ms; bound {r['bound_ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.1f} ms, {r['degen_lanes']} degen "
+                f"lane(s), err {r['max_abs_err']}")
 
     # 3. the sweep kernels against their plain versions
     sweeps = {name: [sweep_case(name, tile, n, 300 + 10 * i + j, clock_hz,
@@ -1023,6 +1210,11 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"slice: {json.dumps(sl, sort_keys=True)}")
+    log(f"slice: {sl['sigs']} sigs in {sl['wall_s']:.3f} s; blocking "
+        f"settle wait (E.STATS.device_seconds) "
+        f"{sl['stats']['device_seconds']:.4f} s = "
+        f"{100 * sl['stats']['device_seconds'] / sl['wall_s']:.2f}% of the "
+        f"wall")
     failed = [k for k, v in sl["checks"].items() if not v]
     if failed:
         raise AssertionError(f"slice checks failed: {failed}")
@@ -1036,7 +1228,8 @@ def main() -> int:
     for name, rows in cases.items():
         rows.sort(key=lambda r: r["B"])
         for r in rows:
-            log(f"{name} B={r['B']}: kernel {r['ms']:.3f} ms, plain "
+            log(f"{name} B={r['B']}: kernel {r['ms']:.3f} ms (T x block "
+                f"{r['shape'][0]}x{r['shape'][1]}), plain "
                 f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), {r['sigs_per_s']:.0f} sigs/s, "
                 f"{r['degen_lanes']} degen lane(s), err {r['max_abs_err']}, "
@@ -1105,8 +1298,10 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "B": row["B"],
+            "team": row["shape"][0], "block": row["shape"][1],
             "shapes": [{**{k: r[k] for k in ("B", "ms", "plain_ms",
-                                             "bound_ms", "sigs_per_s")},
+                                             "bound_ms", "sigs_per_s",
+                                             "shape", "times")},
                         "launches": counts.get(r["B"], 0)} for r in rows],
         })
     # each sweep entry at a compared launch shape of the main path:
