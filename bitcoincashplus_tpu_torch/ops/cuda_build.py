@@ -6,7 +6,8 @@
   carries on quietly on the CPU.
 - **The build.** Each ``csrc/*.cu`` is compiled (sm_90a) into its own
   shared library in the git-ignored ``build/torch_kernels/``, named by
-  the hash of its source and the flags (a stale library is never loaded),
+  the hash of its source, the ``csrc/*.cuh`` headers and the flags (a
+  stale library is never loaded),
   at first use: one nvcc process per source, all started together. The
   libraries are bound with ctypes. Every entry has a plain C interface
   and returns the ``cudaError_t`` of its launch.
@@ -93,16 +94,22 @@ def _nvcc() -> str:
 
 def build() -> list:
     """Compile each csrc/*.cu into its own library under
-    build/torch_kernels/ (the file name carries the hash of the source
-    and flags), one nvcc process per source, all started together.
-    Returns the library paths; raises KernelUnavailable."""
+    build/torch_kernels/ (the file name carries the hash of the source,
+    the headers and the flags), one nvcc process per source, all started
+    together. Returns the library paths; raises KernelUnavailable."""
     srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    # the headers every source may include take part in each hash
+    shared = b""
+    for hdr in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(hdr, "rb") as f:
+            shared += f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     outs, procs = {}, {}
     t0 = time.monotonic()
     for src in srcs:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h.update(shared)
         with open(src, "rb") as f:
             h.update(f.read())
         stem = os.path.splitext(os.path.basename(src))[0]

@@ -1,34 +1,46 @@
-"""ECDSA batch dispatch — the host side of the signature kernel.
+"""ECDSA batch dispatch — the host side of the signature kernels.
 
-Port of the reference's ops/ecdsa_batch.py for the ``-ecdsakernel=w4``
-rung. The block's deferred sigcheck records are packed on the host
-(w = s^-1, u1 = e w, u2 = r w; byte matrices or 13-bit limb planes) and
-verified in one launch of the hand-written CUDA w4 kernel
-(ops/secp256k1.py, csrc/w4_verify.cu):
+Port of the reference's ops/ecdsa_batch.py for the ``-ecdsakernel=glv``
+(the default) and ``-ecdsakernel=w4`` rungs. The block's deferred
+sigcheck records are packed on the host (w = s^-1, u1 = e w, u2 = r w;
+byte matrices or 13-bit limb planes) and verified in one launch of a
+hand-written CUDA kernel (ops/secp256k1.py, csrc/*.cu). The ladder, as the
+reference's:
 
-  - buckets of 1024 lanes and more: byte matrices, expanded in the kernel
-    (``ecdsa_verify_batch_pallas_w4_bytes``, entry w4_verify_bytes);
-  - the small buckets 32 and 128: host-expanded window and limb planes
-    (``ecdsa_verify_batch_pallas_w4``, entry w4_verify_planes);
-  - the packed blobs of the native connect engine (``dispatch_packed``):
-    byte matrices, in 8190-lane slices (bucket 8192).
+  - GLV with the split on the device (``ecdsa_verify_batch_glv_dev``,
+    entry glv_dev_verify): the w4 byte matrices, buckets of 1024 lanes
+    and more;
+  - GLV from the host split (``pack_records_glv``,
+    ``ecdsa_verify_batch_glv``, entry glv_verify);
+  - w4: buckets of 1024 lanes and more as byte matrices, expanded in the
+    kernel (``ecdsa_verify_batch_pallas_w4_bytes``, entry
+    w4_verify_bytes); the small buckets 32 and 128 as host-expanded
+    window and limb planes (``ecdsa_verify_batch_pallas_w4``, entry
+    w4_verify_planes);
+  - the packed blobs of the native connect engine (``dispatch_packed``),
+    in 8190-lane slices (bucket 8192), down the same ladder from the
+    GLV device split.
 
 Kept from the reference: the bucket sets, the two known-answer lanes on
 every device batch, the host re-verify of degenerate lanes, the host
 confirmation of every device False, the ecdsa circuit breaker with its
-retries and fault sites, BatchHandle, SigBatchFuture and LanePacker.
+retries and fault sites (``ecdsa``, ``ecdsa_glv``, ``ecdsa_glv_dev``),
+BatchHandle, SigBatchFuture and LanePacker.
 
-Differences, all deliberate: w4 is the only device kernel and the default
-(``ECDSA_KERNELS == ("w4",)``); GLV and the Schnorr MSM are later slices
-of the port, and ``set_kernel("glv"|"msm")`` raises. Schnorr lanes take
-the per-lane oracle (the reference's route when msm is not selected).
-The device is ``cuda`` unless ``set_device("cpu")`` (ops/cuda_build.py,
-re-exported here) selects the plain PyTorch version (the tests). A
-kernel that cannot be built or launched raises ``KernelUnavailable``
-through the supervision, and so does a CUDA
-runtime error that torch reports from the kernel's launch or its verdict
-read (an illegal address); neither is degraded to the CPU, and with no
-card and no CPU device selected the device leg raises too.
+Differences, all deliberate: the Schnorr MSM is a later slice of the
+port, and ``set_kernel("msm")`` raises; Schnorr lanes take the per-lane
+oracle (the reference's route when msm is not selected). The ladder
+steps down a rung (GLV device split -> GLV host split -> w4) only for a
+fault the harness injected (``BCP_FAULT_*`` on ``ecdsa_glv_dev`` or
+``ecdsa_glv``); every other failure of a GLV leg raises
+``KernelUnavailable``, and so do known-answer lanes that come back wrong
+when no fault poisoned them. The device is ``cuda`` unless
+``set_device("cpu")`` (ops/cuda_build.py, re-exported here) selects the
+plain PyTorch versions (the tests). A kernel that cannot be built or
+launched raises ``KernelUnavailable`` through the supervision, and so
+does a CUDA runtime error that torch reports from the kernel's launch or
+its verdict read (an illegal address); neither is degraded to the CPU,
+and with no card and no CPU device selected the device leg raises too.
 
 CPU fallback (``backend="cpu"``, batches below the dispatch floor, or a
 breaker-supervised device failure) runs the native C++ verify or the
@@ -40,7 +52,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,7 +60,7 @@ import torch
 from ..crypto import secp256k1 as oracle
 from ..util import devicewatch as dw
 from ..util import telemetry as tm
-from ..util.faults import INJECTOR, Backoff, PoisonedOutput
+from ..util.faults import INJECTOR, Backoff, InjectedFault, PoisonedOutput
 from ..util.log import log_printf
 from . import dispatch
 # set_device is re-exported: the device switch is shared by every kernel
@@ -61,6 +73,12 @@ from .cuda_build import (KernelUnavailable, device, raise_kernel_fault,
 # and the lane-fill / in-flight gauges. STATS itself is projected onto
 # the registry by the collector below, so getmetrics' /metrics namespace
 # and the info RPC's `batch` section read the same counters.
+_STAGE_H = tm.histogram(
+    "bcp_ecdsa_stage_seconds",
+    "Host pack-stage latency per dispatch (decompose = GLV lattice split, "
+    "pack = byte-matrix emit)", labels=("stage",),
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0))
 _SETTLE_H = tm.histogram(
     "bcp_ecdsa_settle_wait_seconds",
     "Blocking wait at BatchHandle.result() — near zero when the pipeline "
@@ -114,8 +132,11 @@ CPU_FLOOR = 8
 # The byte-pipeline ladder is {1024, 2048, 4096} then 2048-granular to
 # 16384 = 9 shapes (_bucket_for pallas=True; the reference's program split
 # at 16384 keeps larger batches on those shapes); the plane entry pads to
-# BUCKETS.
+# BUCKETS. Both GLV legs take the byte ladder.
 PALLAS_SHAPE_BUDGET = 9
+_PW_GLV = dw.program("ecdsa_glv", shape_budget=PALLAS_SHAPE_BUDGET)
+_PW_GLV_DEV = dw.program("ecdsa_glv_decompose",
+                         shape_budget=PALLAS_SHAPE_BUDGET)
 _PW_W4_BYTES = dw.program("ecdsa_w4_bytes", shape_budget=PALLAS_SHAPE_BUDGET)
 _PW_W4 = dw.program("ecdsa_w4", shape_budget=len(BUCKETS))
 
@@ -152,37 +173,44 @@ def _watched_kernel(pw, bucket: int, arrays, fn, split: int | None = 16384):
 
 # ---- device and kernel selection --------------------------------------------
 
-# "w4" is the only device verify kernel of this slice of the port; the
-# reference's "glv" (default there) and "msm" rungs are later slices.
-ECDSA_KERNELS = ("w4",)
+# "glv": the endomorphism split verifier (32 windows over the Q and
+# lambda Q streams and the fixed-base G comb; the default, as in the
+# reference); "w4": the 64-window kernel, the rung below it. The
+# reference's "msm" (the Schnorr batch check) is a later slice.
+ECDSA_KERNELS = ("glv", "w4")
 _LATER_SLICES = {
-    "glv": "the GLV kernels (K6/K7) are the next slice of the port",
     "msm": "the Schnorr MSM kernel (K9) is a later slice of the port",
 }
-_KERNEL = None  # set_kernel() override; None = BCP_ECDSA_KERNEL or "w4"
+# Fault-injection sites of the GLV legs, explicit opt-in only (util/faults):
+# fail-* on GLV_DEV_SITE steps the device-split leg down to the host split,
+# on GLV_SITE (which both GLV legs consult) down to w4; poison-output on
+# either proves the known-answer gate.
+GLV_SITE = "ecdsa_glv"
+GLV_DEV_SITE = "ecdsa_glv_dev"
+_KERNEL = None  # set_kernel() override; None = BCP_ECDSA_KERNEL or "glv"
 _BAD_ENV_WARNED = False
 
 
 def active_kernel() -> str:
-    """The kernel the next device dispatch runs. An invalid
-    BCP_ECDSA_KERNEL value falls back to w4 with a one-time warning (this
-    runs on the dispatch hot path, so it must not raise)."""
+    """The kernel the next device dispatch will try first. An invalid
+    BCP_ECDSA_KERNEL value falls back to the default with a one-time
+    warning (this runs on the dispatch hot path, so it must not raise)."""
     global _BAD_ENV_WARNED
     if _KERNEL is not None:
         return _KERNEL
-    env = os.environ.get("BCP_ECDSA_KERNEL", "w4")
+    env = os.environ.get("BCP_ECDSA_KERNEL", "glv")
     if env in ECDSA_KERNELS:
         return env
     if not _BAD_ENV_WARNED:
         _BAD_ENV_WARNED = True
-        log_printf("BCP_ECDSA_KERNEL=%r is not one of %s — using 'w4'",
+        log_printf("BCP_ECDSA_KERNEL=%r is not one of %s — using 'glv'",
                    env, "/".join(ECDSA_KERNELS))
-    return "w4"
+    return "glv"
 
 
 def set_kernel(name: str) -> str:
-    """Select the device verify kernel; raises ValueError for any other
-    name than "w4", naming the later slice for "glv" and "msm"."""
+    """Select the device verify kernel ("glv" or "w4"); raises ValueError
+    for any other name, naming the later slice for "msm"."""
     global _KERNEL
     if name not in ECDSA_KERNELS:
         later = _LATER_SLICES.get(name)
@@ -212,9 +240,25 @@ class BatchStats:
     # pipeline overlap: dispatches currently in flight / high-water mark
     in_flight: int = 0
     max_in_flight: int = 0
-    # w4 kernel lanes flagged degenerate (adversarially-crafted H == 0
+    # w4/glv kernel lanes flagged degenerate (adversarially-crafted H == 0
     # collisions) and re-verified on the CPU path — see ops/secp256k1.py
     degenerate_rechecks: int = 0
+    # GLV kernel accounting: dispatches that ran a GLV kernel, injected
+    # GLV-leg faults that stepped down to the w4 kernel, and the host-side
+    # pack stage split (lattice decomposition vs byte packing)
+    glv_dispatches: int = 0
+    glv_fallbacks: int = 0
+    glv_decompose_s: float = 0.0
+    glv_pack_s: float = 0.0
+    # device-split leg: dispatches of glv_dev_verify, injected faults that
+    # stepped down to the host split, and the emit/dispatch stages
+    # (decompose_s above stays HOST decompose only — ~0 while the device
+    # leg runs; emit_s is the numpy byte emission across BOTH GLV legs;
+    # dispatch_s is the host-side enqueue of the GLV kernels)
+    glv_dev_dispatches: int = 0
+    glv_dev_fallbacks: int = 0
+    glv_emit_s: float = 0.0
+    glv_dispatch_s: float = 0.0
     # supervised-dispatch accounting (ops/dispatch breaker layer): sigs
     # re-verified on the CPU engine because the device path failed or its
     # known-answer lanes came back wrong. NOTE sigs_padded includes the 2
@@ -402,6 +446,102 @@ def pack_records_w4_bytes(records: Sequence, bucket: int):
     return u1m, u2m, qxb, qyb, q_inf, r0b, rnb, wrap8
 
 
+def _glv_pack_parts(u1_bytes, u2_bytes, qx_bytes, qy_bytes, r_bytes,
+                    rn_bytes, wraps, range_bad, bucket: int):
+    """Shared host-split GLV pack (the rung below the device split):
+    lattice-decompose the (u1, u2) scalars with the numpy limb-batch
+    split (ops/secp256k1.glv_split_batch_np) and emit the glv_verify
+    kernel's byte matrices. u1/u2/qx/qy/r/rn: (n, 32) uint8 big-endian.
+    range_bad: (n,) bool poison mask or None. Decompose and emit stages
+    are timed into STATS."""
+    from . import secp256k1 as dev
+
+    n = len(qy_bytes)
+    t0 = time.monotonic()
+    if n:
+        a1m, na1, a2m, na2 = dev.glv_decompose_batch_np(u1_bytes)
+        b1m, nb1, b2m, nb2 = dev.glv_decompose_batch_np(u2_bytes)
+    dt = time.monotonic() - t0
+    STATS.glv_decompose_s += dt
+    _STAGE_H.labels(stage="decompose").observe(dt)
+    dw.note_phase("ecdsa", "decompose", dt)
+
+    t0 = time.monotonic()
+    d1m = np.zeros((bucket, 16), np.uint8)
+    d2m = np.zeros((bucket, 16), np.uint8)
+    s1m = np.zeros((bucket, 16), np.uint8)
+    s2m = np.zeros((bucket, 16), np.uint8)
+    sg1 = np.zeros(bucket, np.uint8)
+    sg2 = np.zeros(bucket, np.uint8)
+    ydiff = np.zeros(bucket, np.uint8)
+    qyb = np.zeros((bucket, 32), np.uint8)
+    if n:
+        # comb digits little-endian (position i = weight 256^i); ladder
+        # scalars big-endian (MSB-first nibble windows on device)
+        d1m[:n] = a1m
+        d2m[:n] = a2m
+        s1m[:n] = b1m[:, ::-1]
+        s2m[:n] = b2m[:, ::-1]
+        sg1[:n] = na1
+        sg2[:n] = na2
+        ydiff[:n] = nb1 ^ nb2
+        # first Q-stream sign folds into qy (device never negates Q)
+        fold = nb1.astype(bool)
+        qyb[:n] = qy_bytes
+        if fold.any():
+            qyb[:n][fold] = dev.field_neg_bytes_np(qy_bytes[fold])
+
+    def pad(mat: np.ndarray) -> np.ndarray:
+        out = np.zeros((bucket, 32), np.uint8)
+        out[:n] = mat
+        return out
+
+    q_inf = np.ones(bucket, np.uint8)
+    q_inf[:n] = (np.asarray(range_bad, bool).astype(np.uint8)
+                 if range_bad is not None else 0)
+    wrap8 = np.zeros(bucket, np.uint8)
+    wrap8[:n] = np.asarray(wraps, np.uint8)
+    out = (d1m, d2m, sg1, sg2, s1m, s2m, ydiff, pad(qx_bytes), qyb,
+           q_inf, pad(r_bytes), pad(rn_bytes), wrap8)
+    dt = time.monotonic() - t0
+    STATS.glv_pack_s += dt
+    STATS.glv_emit_s += dt
+    _STAGE_H.labels(stage="pack").observe(dt)
+    dw.note_phase("ecdsa", "pack", dt)
+    return out
+
+
+
+
+def pack_records_glv(records: Sequence, bucket: int):
+    """pack_records for the GLV kernel: split scalars + signs (the packer
+    emits the λ-decomposition; LanePacker buckets are unchanged). Padded
+    lanes are poisoned exactly like the w4 packers."""
+    n = len(records)
+    u1_bytes, u2_bytes, range_ok = _scalar_bitplanes(records, n)
+    wraps = [rec.r + oracle.N < oracle.P for rec in records]
+    qx_bytes = np.frombuffer(
+        b"".join(rec.pubkey[0].to_bytes(32, "big") for rec in records),
+        np.uint8).reshape(n, 32) if n else np.zeros((0, 32), np.uint8)
+    r_bytes = np.frombuffer(
+        b"".join(rec.r.to_bytes(32, "big") for rec in records),
+        np.uint8).reshape(n, 32) if n else np.zeros((0, 32), np.uint8)
+    rn_bytes = np.frombuffer(
+        b"".join((rec.r + oracle.N if w else rec.r).to_bytes(32, "big")
+                 for rec, w in zip(records, wraps)),
+        np.uint8).reshape(n, 32) if n else np.zeros((0, 32), np.uint8)
+    qy_bytes = np.frombuffer(
+        b"".join(rec.pubkey[1].to_bytes(32, "big") for rec in records),
+        np.uint8).reshape(n, 32) if n else np.zeros((0, 32), np.uint8)
+    range_bad = None if range_ok is None else ~np.asarray(range_ok, bool)
+    return _glv_pack_parts(
+        u1_bytes, u2_bytes, qx_bytes, qy_bytes, r_bytes, rn_bytes, wraps,
+        range_bad, bucket,
+    )
+
+
+
+
 def _verify_cpu_ecdsa(records: Sequence) -> np.ndarray:
     """ECDSA CPU lane: the native C++ scalar module (threaded via -par)
     when available, else the Python-int oracle. Differential parity is
@@ -554,11 +694,12 @@ class BatchHandle:
     fabricated mask."""
 
     __slots__ = ("_n", "_bucket", "_device_ok", "_cpu_ok", "_degen",
-                 "_records", "_breaker", "_kat", "_recover", "_ctx")
+                 "_records", "_breaker", "_kat", "_recover", "_ctx",
+                 "_poisoned")
 
     def __init__(self, n, bucket=0, device_ok=None, cpu_ok=None,
                  degen=None, records=None, breaker=None, kat=False,
-                 recover=None, ctx=None):
+                 recover=None, ctx=None, poisoned=False):
         self._n = n
         self._bucket = bucket
         self._device_ok = device_ok
@@ -571,6 +712,9 @@ class BatchHandle:
         # enqueue-side trace context: the settle span links back to the
         # span that dispatched this batch
         self._ctx = ctx
+        # the harness inverted this batch's mask at dispatch (a GLV leg's
+        # poison-output drill)
+        self._poisoned = poisoned
 
     def _device_failed(self, err: BaseException) -> np.ndarray:
         """Settle-time device failure: breaker bookkeeping + CPU re-verify
@@ -609,7 +753,7 @@ class BatchHandle:
             STATS.in_flight = max(0, STATS.in_flight - 1)
             _IN_FLIGHT_G.set(STATS.in_flight)
             self._device_ok = None
-            raise_kernel_fault(e, "the w4 kernel")
+            raise_kernel_fault(e, "the ecdsa kernel")
             return self._device_failed(e)
         # device_seconds counts only the blocking wait — when the overlap
         # is doing its job the host hid the latency and this is near zero
@@ -624,12 +768,18 @@ class BatchHandle:
         ok = np.asarray(ok, dtype=bool)
         if INJECTOR.should_poison("ecdsa"):
             ok = ~ok
+            self._poisoned = True
         if self._kat:
             # known-answer gate: lanes n and n+1 are the good/bad probe
             # records appended at dispatch; both polarities must be right
             # before ANY lane of this batch is trusted
             if not bool(ok[self._n]) or bool(ok[self._n + 1]):
                 STATS.kat_failures += 1
+                if not self._poisoned:
+                    # a kernel that lies with no fault injected is broken
+                    raise KernelUnavailable(
+                        "the ecdsa kernel's known-answer lanes came back "
+                        "wrong with no fault injected")
                 return self._device_failed(
                     PoisonedOutput("ecdsa known-answer lanes wrong"))
         out = ok[: self._n].copy()
@@ -665,8 +815,8 @@ def dispatch_batch(records: Sequence, backend: str = "auto",
 
     backend: "auto" (device if available and batch >= CPU_FLOOR),
     "device" (force), "cpu" (force oracle — synchronous).
-    kernel: per-call override of the device verify kernel; only "w4"
-    exists in this slice of the port.
+    kernel: per-call override of the device verify kernel ("glv" or "w4");
+    None uses active_kernel() (the -ecdsakernel process default).
 
     The device leg is supervised (ops/dispatch): the ecdsa circuit breaker
     gates it, bounded retries absorb transient dispatch errors, and a
@@ -721,9 +871,14 @@ def _dispatch_device(records: Sequence, br,
     """One supervised device enqueue attempt (with retries). Returns None
     when every attempt failed — the caller owns the CPU fallback. Two
     known-answer lanes (good + bad signature) ride after the real records
-    so BatchHandle.result can detect a lying validity mask. Buckets that
-    are multiples of 1024 take the byte entry, the small buckets (32,
-    128) the plane entry."""
+    so BatchHandle.result can detect a lying validity mask (the KAT lanes
+    ride — and therefore exercise — whichever kernel actually ran).
+
+    Kernel chain: GLV with the device split -> GLV from the host split ->
+    w4 (buckets that are multiples of 1024 take the byte entry, the small
+    buckets 32 and 128 the plane entry). A GLV leg steps down only for a
+    fault the harness injected (_note_glv_dev_failure,
+    _note_glv_failure)."""
     from . import secp256k1 as dev
 
     wire = list(records) + list(_kat_records())
@@ -731,33 +886,44 @@ def _dispatch_device(records: Sequence, br,
     last: Optional[BaseException] = None
     if kernel is not None and kernel not in ECDSA_KERNELS:
         set_kernel(kernel)  # raises, naming the later slice
+    kern = kernel or active_kernel()
     ctx = tm.trace_context()
     for attempt in range(br.cfg.retries + 1):
         try:
             INJECTOR.on_call("ecdsa")
             require_device("the ecdsa device leg")
-            bucket = _bucket_for(len(wire), pallas=True)
-            if bucket % 1024 == 0:
-                with dw.phase("ecdsa", "pack"):
-                    arrays = pack_records_w4_bytes(wire, bucket)
-                device_ok, degen = _watched_kernel(
-                    _PW_W4_BYTES, bucket, arrays,
-                    dev.ecdsa_verify_batch_pallas_w4_bytes)
-            else:
-                with dw.phase("ecdsa", "pack"):
-                    arrays = pack_records_w4(wire, bucket)
-                device_ok, degen = _watched_kernel(
-                    _PW_W4, bucket, arrays, dev.ecdsa_verify_batch_pallas_w4,
-                    split=None)
+            device_ok = degen = None
+            poisoned = False
+            if kern == "glv":
+                # floor 1024: the GLV legs take the byte ladder's buckets
+                bucket = max(1024, _bucket_for(len(wire), pallas=True))
+                device_ok, degen, poisoned = _glv_ladder(
+                    bucket, lambda: pack_records_w4_bytes(wire, bucket),
+                    lambda: pack_records_glv(wire, bucket))
+            if device_ok is None:
+                bucket = _bucket_for(len(wire), pallas=True)
+                if bucket % 1024 == 0:
+                    with dw.phase("ecdsa", "pack"):
+                        arrays = pack_records_w4_bytes(wire, bucket)
+                    device_ok, degen = _watched_kernel(
+                        _PW_W4_BYTES, bucket, arrays,
+                        dev.ecdsa_verify_batch_pallas_w4_bytes)
+                else:
+                    with dw.phase("ecdsa", "pack"):
+                        arrays = pack_records_w4(wire, bucket)
+                    device_ok, degen = _watched_kernel(
+                        _PW_W4, bucket, arrays,
+                        dev.ecdsa_verify_batch_pallas_w4, split=None)
             _note_device_dispatch(len(records), bucket)
             return BatchHandle(len(records), bucket, device_ok, degen=degen,
-                               records=wire, breaker=br, kat=True, ctx=ctx)
+                               records=wire, breaker=br, kat=True, ctx=ctx,
+                               poisoned=poisoned)
         except (KeyboardInterrupt, SystemExit):
             raise
         except _NEVER_DEGRADE:
             raise
         except Exception as e:  # noqa: BLE001 — supervised boundary
-            raise_kernel_fault(e, "the w4 kernel")
+            raise_kernel_fault(e, "the ecdsa kernel")
             last = e
             if attempt < br.cfg.retries:
                 time.sleep(boff.next())
@@ -767,6 +933,93 @@ def _dispatch_device(records: Sequence, br,
                "%d sig(s)", type(last).__name__, str(last)[:120],
                len(records))
     return None
+
+
+def _glv_ladder(bucket: int, dev_arrays: Callable[[], list],
+                host_arrays: Callable[[], list]) -> tuple:
+    """The GLV rungs of one supervised attempt, shared by _dispatch_device
+    and _dispatch_packed_device: the device-split kernel on
+    ``dev_arrays()`` (the w4 byte matrices), then, only after a fault the
+    harness injected there, the host-split kernel on ``host_arrays()``.
+    Returns (device_ok, degen, poisoned); device_ok is None when injected
+    faults took both rungs down (the caller steps down to w4)."""
+    from . import secp256k1 as dev
+
+    try:
+        # device-split leg: the host pack is the w4 byte emit only; the
+        # lattice split runs in the kernel
+        INJECTOR.on_call(GLV_DEV_SITE)
+        INJECTOR.on_call(GLV_SITE)
+        t0 = time.monotonic()
+        with dw.phase("ecdsa", "pack"):
+            arrays = dev_arrays()
+        dt = time.monotonic() - t0
+        STATS.glv_emit_s += dt
+        _STAGE_H.labels(stage="emit").observe(dt)
+        t0 = time.monotonic()
+        device_ok, degen = _watched_kernel(
+            _PW_GLV_DEV, bucket, arrays, dev.ecdsa_verify_batch_glv_dev)
+        STATS.glv_dispatch_s += time.monotonic() - t0
+        poisoned = (INJECTOR.should_poison(GLV_DEV_SITE)
+                    or INJECTOR.should_poison(GLV_SITE))
+        if poisoned:
+            device_ok = ~device_ok
+        STATS.glv_dispatches += 1
+        STATS.glv_dev_dispatches += 1
+        return device_ok, degen, poisoned
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception as e:
+        _note_glv_dev_failure(e)
+    try:
+        # host-split leg
+        INJECTOR.on_call(GLV_SITE)
+        arrays = host_arrays()
+        t0 = time.monotonic()
+        device_ok, degen = _watched_kernel(
+            _PW_GLV, bucket, arrays, dev.ecdsa_verify_batch_glv)
+        STATS.glv_dispatch_s += time.monotonic() - t0
+        poisoned = INJECTOR.should_poison(GLV_SITE)
+        if poisoned:
+            device_ok = ~device_ok
+        STATS.glv_dispatches += 1
+        return device_ok, degen, poisoned
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception as e:
+        _note_glv_failure(e)
+    return None, None, False
+
+
+def _raise_unless_injected(e: Exception, what: str) -> None:
+    """A GLV leg's failure steps down a rung only when the harness
+    injected it (an InjectedFault); programming errors and a missing
+    kernel re-raise as they are, and everything else — a CUDA error, a
+    bad launch, a failed pack — raises KernelUnavailable."""
+    if isinstance(e, _NEVER_DEGRADE):
+        raise e
+    raise_kernel_fault(e, what)
+    if not isinstance(e, InjectedFault):
+        raise KernelUnavailable(
+            f"{what} failed: {type(e).__name__}: {e}") from e
+
+
+def _note_glv_dev_failure(e: Exception) -> None:
+    """Device-split leg failure: an injected fault steps down to the host
+    split (same supervised attempt); any other failure raises."""
+    _raise_unless_injected(e, "the GLV device-split kernel (glv_dev_verify)")
+    STATS.glv_dev_fallbacks += 1
+    log_printf("glv device-decompose leg failed (%s) — host decompose "
+               "fallback", f"{type(e).__name__}: {e}"[:200])
+
+
+def _note_glv_failure(e: Exception) -> None:
+    """GLV-leg failure: an injected fault steps down to the w4 kernel
+    (same supervised attempt); any other failure raises."""
+    _raise_unless_injected(e, "the GLV kernel (glv_verify)")
+    STATS.glv_fallbacks += 1
+    log_printf("glv ECDSA kernel failed (%s) — w4 fallback",
+               f"{type(e).__name__}: {e}"[:200])
 
 
 def verify_batch(records: Sequence, backend: str = "auto",
@@ -1027,7 +1280,7 @@ class LanePacker:
 # ---------------------------------------------------------------------------
 # Blob-level dispatch — the native connect engine's sigscan
 # (native/connect.cpp) emits (pub64, r||s, msg, rn, wrap) byte blobs; this
-# entry feeds them straight into the w4 byte kernel (or the native
+# entry feeds them straight into the byte kernels (or the native
 # threaded CPU verify) with zero per-record Python-int work. The record-level
 # dispatch_batch above remains the generic path (script interpreter output).
 # ---------------------------------------------------------------------------
@@ -1134,8 +1387,10 @@ def _packed_cpu_handle(pub, rs, msg, n: int) -> BatchHandle:
 
 def _dispatch_packed_device(pub, rs, msg, rn, wrap, n: int,
                             br) -> Optional[BatchHandle]:
-    """Supervised packed enqueue (retries + KAT lanes) on the w4 byte
-    entry; None when every attempt failed."""
+    """Supervised packed enqueue (retries + KAT lanes) down the ladder of
+    _dispatch_device (GLV device split -> GLV host split -> the w4 byte
+    entry) under the process default kernel; None when every attempt
+    failed."""
     from .. import native
     from . import secp256k1 as dev
 
@@ -1183,13 +1438,26 @@ def _dispatch_packed_device(pub, rs, msg, rn, wrap, n: int,
             q_inf[:m] = range_bad.astype(np.uint8)
             wrap8 = np.zeros(bucket, np.uint8)
             wrap8[:m] = wrap2
-            with dw.phase("ecdsa", "pack"):
-                arrays = [pad(u1, 32), pad(u2, 32), pad(pub2[:, :32], 32),
-                          pad(pub2[:, 32:], 32), q_inf, pad(rs2[:, :32], 32),
-                          pad(rn2, 32), wrap8]
-            device_ok, degen = _watched_kernel(
-                _PW_W4_BYTES, bucket, arrays,
-                dev.ecdsa_verify_batch_pallas_w4_bytes)
+
+            def byte_arrays() -> list:
+                # the byte matrices of the device-split and w4 entries
+                return [pad(u1, 32), pad(u2, 32), pad(pub2[:, :32], 32),
+                        pad(pub2[:, 32:], 32), q_inf, pad(rs2[:, :32], 32),
+                        pad(rn2, 32), wrap8]
+
+            device_ok = degen = None
+            poisoned = False
+            if active_kernel() == "glv":
+                device_ok, degen, poisoned = _glv_ladder(
+                    bucket, byte_arrays, lambda: _glv_pack_parts(
+                        u1, u2, pub2[:, :32], pub2[:, 32:], rs2[:, :32],
+                        rn2, wrap2.astype(bool), range_bad, bucket))
+            if device_ok is None:
+                with dw.phase("ecdsa", "pack"):
+                    arrays = byte_arrays()
+                device_ok, degen = _watched_kernel(
+                    _PW_W4_BYTES, bucket, arrays,
+                    dev.ecdsa_verify_batch_pallas_w4_bytes)
             _note_device_dispatch(n, bucket)
 
             def recover() -> np.ndarray:
@@ -1205,13 +1473,13 @@ def _dispatch_packed_device(pub, rs, msg, rn, wrap, n: int,
             return BatchHandle(n, bucket, device_ok, degen=degen,
                                records=_LazyRecords(pub2, rs2, msg2),
                                breaker=br, kat=True, recover=recover,
-                               ctx=ctx)
+                               ctx=ctx, poisoned=poisoned)
         except (KeyboardInterrupt, SystemExit):
             raise
         except _NEVER_DEGRADE:
             raise
         except Exception as e:  # noqa: BLE001 — supervised boundary
-            raise_kernel_fault(e, "the w4 kernel")
+            raise_kernel_fault(e, "the ecdsa kernel")
             last = e
             if attempt < br.cfg.retries:
                 time.sleep(boff.next())

@@ -1,51 +1,58 @@
-"""Batch secp256k1 ECDSA verification with 4-bit windows (the w4 rung).
+"""Batch secp256k1 ECDSA verification: the w4 rung and the GLV rungs.
 
-Port of the w4 part of the reference's ops/secp256k1.py. Two layers:
+Port of the w4 and GLV parts of the reference's ops/secp256k1.py. Two
+layers:
 
-- **The kernel** (``csrc/w4_verify.cu``, CUDA C++ for sm_90a, built with
-  nvcc at first use and bound with ctypes by ops/cuda_build.py). It
-  replaces both Pallas w4 kernels of the JAX package:
-  ``_verify_kernel_w4_3d`` (its
-  ``pallas_call`` at bitcoincashplus_tpu/ops/secp256k1.py:912, behind
+- **The kernels** (CUDA C++ for sm_90a, built with nvcc at first use and
+  bound with ctypes by ops/cuda_build.py; their field core and point
+  formulas are ``csrc/secp256k1_core.cuh``).
+  ``csrc/w4_verify.cu`` replaces both Pallas w4 kernels of the JAX
+  package: ``_verify_kernel_w4_3d`` (its ``pallas_call`` at
+  bitcoincashplus_tpu/ops/secp256k1.py:912, behind
   ``ecdsa_verify_batch_pallas_w4_bytes``) through the entry
   ``w4_verify_bytes``, and ``_verify_kernel_w4`` (``pallas_call`` at
   :827, behind ``ecdsa_verify_batch_pallas_w4``) through the entry
-  ``w4_verify_planes``. It is bound by integer multiply-adds (at most
-  about 437,000 32-bit IMADs per verify; see the source note in the .cu
-  file): a field core of PTX carry chains, the tables in shared memory,
-  and a team of T threads per lane, T and the block size picked per
-  bucket by ``W4_LAUNCH``.
-- **The plain version**: the same verify in PyTorch tensor ops, used for
-  tensors on the CPU (the tests) and as the yardstick the kernel is held
-  against on the card. It carries field elements as (..., 16) int64
+  ``w4_verify_planes``. ``csrc/glv_verify.cu`` replaces the plain-XLA GLV
+  programs: ``_glv_dev_program`` (:1559, the device split and verify)
+  through ``glv_dev_verify``, ``_glv_program`` (:1296, the verify from a
+  host split) through ``glv_verify`` and ``_glv_decompose_program``
+  (:1539) through ``glv_decompose``. Both are bound by integer
+  multiply-adds (about 437,000 32-bit IMADs a w4 verify, 298,000 a GLV
+  one; see the source notes): a field core of PTX carry chains, the
+  per-lane tables in shared memory, and a team of T threads per lane, T
+  and the block size picked per bucket by ``ECDSA_LAUNCH``.
+- **The plain versions**: the same verifies in PyTorch tensor ops, used
+  for tensors on the CPU (the tests) and as the yardstick the kernels are
+  held against on the card. They carry field elements as (..., 16) int64
   tensors of 16-bit limbs (lanes first): torch has no usable uint32
   arithmetic on the CPU, and int64 leaves room for a whole schoolbook
   column sum. A field multiply is one broadcast limb product and one
   anti-diagonal sum, then a fold of 2^256 == 2^32 + 977 and four parallel
   carry rounds.
 
-The wrappers ``ecdsa_verify_batch_pallas_w4_bytes`` and
-``ecdsa_verify_batch_pallas_w4`` keep the reference's names, argument
-order, shapes and ``(ok, degen)`` bool results. A wrapper takes the plain
-version only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises ``KernelUnavailable`` — it never falls back.
+The wrappers keep the reference's names, argument order, shapes and
+``(ok, degen)`` bool results. A wrapper takes the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises
+``KernelUnavailable`` — it never falls back.
 
-Both keep the reference's schedule (64 MSB-first windows, 4 doublings, the
-G add before the Q add, the Q table built as in ``_w4_tables``), so the
-degen plane — an H == 0 collision between finite points in a cheap add —
-matches the JAX kernel lane for lane. Degen lanes carry garbage and are
-re-verified on the host by the caller (ops/ecdsa_batch.BatchHandle).
+Every verify keeps the reference's schedule (w4: 64 MSB-first windows, 4
+doublings, the G add before the Q add, the Q table built as in
+``_w4_tables``; GLV: see its section below), so the degen plane — an
+H == 0 collision between finite points in a cheap add — matches the JAX
+programs lane for lane. Degen lanes carry garbage and are re-verified on
+the host by the caller (ops/ecdsa_batch.BatchHandle).
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..crypto.secp256k1 import G, P, point_add
+from ..crypto.secp256k1 import G, N, P, point_add, point_double
 from . import cuda_build
 from .cuda_build import KernelUnavailable
 
@@ -62,7 +69,8 @@ JAX_N_LIMBS = 20
 # Launch counts per kernel entry, and per (entry, lanes) shape: each
 # wrapper adds one where it launches its kernel, and nowhere else (the
 # plain version does not count).
-LAUNCHES = {"w4_verify_bytes": 0, "w4_verify_planes": 0}
+LAUNCHES = {"w4_verify_bytes": 0, "w4_verify_planes": 0,
+            "glv_dev_verify": 0, "glv_verify": 0, "glv_decompose": 0}
 LAUNCH_SHAPES: dict = {}
 
 
@@ -153,8 +161,8 @@ _CONSTS: dict[str, dict] = {}
 
 
 def _consts(device) -> dict:
-    """Per-device constant tensors: the bias, p, and the affine G table
-    (row j = jG, row 0 unused)."""
+    """Per-device constant tensors: the bias, p, the affine G table (row
+    j = jG, row 0 unused), 1 and beta."""
     key = str(device)
     c = _CONSTS.get(key)
     if c is None:
@@ -170,6 +178,7 @@ def _consts(device) -> dict:
             "gx": to_limbs(gx, device),
             "gy": to_limbs(gy, device),
             "one": to_limbs([1], device)[0],
+            "beta": to_limbs([BETA], device)[0],
             # where a carry out of 2^256 lands: 977 at limb 0, 1 at limb 2
             "fold": to_limbs([(1 << 32) + 977], device)[0],
         }
@@ -442,18 +451,19 @@ def bits_to_windows_np(scalar_bytes: np.ndarray, bucket: int) -> np.ndarray:
 
 _ENTRY_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
-# The launch shape per bucket: (most lanes, team size T, threads a block);
-# the first row whose lane count covers B applies. T threads of a team
-# verify one lane (1, 2 or 4; see the .cu file). Chosen from
-# chip_smoke.py's timing of every compared shape at each T and block size
-# on the H100 (PERF.md, K4/K5): the fastest T whose results were equal on
-# every compare.
-W4_LAUNCH = ((2048, 4, 128), (8192, 2, 64), (None, 1, 128))
+# The launch shape per bucket of the w4 and GLV verify entries: (most
+# lanes, team size T, threads a block); the first row whose lane count
+# covers B applies. T threads of a team verify one lane (1, 2 or 4; see
+# the .cu files). Chosen from chip_smoke.py's timing of every compared
+# shape at each T and block size on the H100 (PERF.md, K4-K7): the
+# fastest T whose results were equal on every compare, the same for both
+# kernels.
+ECDSA_LAUNCH = ((2048, 4, 128), (8192, 2, 64), (None, 1, 128))
 
 
 def launch_shape(B: int) -> tuple:
-    """(team size, threads a block) of a w4 launch of B lanes."""
-    return next((team, block) for most, team, block in W4_LAUNCH
+    """(team size, threads a block) of a verify launch of B lanes."""
+    return next((team, block) for most, team, block in ECDSA_LAUNCH
                 if most is None or B <= most)
 
 
@@ -560,3 +570,651 @@ def w4_verify_planes_plain(u1w, u2w, qx, qy, q_inf, r0, rn, wrap_ok):
     return w4_verify_plain(u32(u1w).T & 0xF, u32(u2w).T & 0xF, lim(qx),
                            lim(qy), q_inf != 0, lim(r0), lim(rn),
                            wrap_ok != 0)
+
+
+# ---- GLV: the endomorphism split verify (K6, K7) ----------------------------
+#
+# Port of the GLV part of the reference's ops/secp256k1.py. secp256k1 has an
+# efficient endomorphism phi(x, y) = (beta x, y) = lambda (x, y), so every
+# 256-bit scalar splits as k = k1 + lambda k2 (mod n) with |k1|, |k2| below
+# 2^128:
+#
+#   u1 G + u2 Q = s11 (+-G) + s12 (+-lambda G) + s21 (+-Q) + s22 (+-lambda Q)
+#
+# The Q streams run a 32-window ladder (4 doublings, then a cheap full add
+# from the Q table and one from the lambda Q table, which is the Q table
+# with X -> beta X and Y negated where the two Q-stream signs differ); the
+# G streams are a fixed-base comb of d 256^i G (16 teeth of 8-bit digits),
+# added after the ladder by cheap mixed adds. u1's halves are the comb
+# digits, u2's the ladder windows; the first Q-stream sign is folded into
+# qy. The schedule is the reference's, so the degen plane matches it lane
+# for lane.
+#
+# Three layers, as for w4:
+# - the host part: the constants, the Python-int split (the oracle), the
+#   numpy batch split and sign fold the host-decompose pack uses, and the
+#   comb, built once per process;
+# - the kernels (csrc/glv_verify.cu): glv_dev_verify (K6, the reference's
+#   _glv_dev_program: the split on the card, then the verify), glv_verify
+#   (K7, _glv_program: the verify from the host split) and glv_decompose
+#   (K7's decompose-only surface, _glv_decompose_program);
+# - the plain PyTorch versions, on the w4 plain core above.
+
+LAMBDA = 0x5363AD4CC05C30E0A5261C028812645A122E22EA20816678DF02967C1B23BD72
+BETA = 0x7AE96A2B657C07106E64479EAC3434E99CF0497512F58995C1396C28719501EE
+# lattice basis for the split (libsecp256k1 scalar_impl.h): a1 + b1 lambda
+# == a2 + b2 lambda == 0 (mod n); |k1|, |k2| stay below 2^128 for any k
+_GLV_A1 = 0x3086D221A7D46BCDE86C90E49284EB15
+_GLV_MINUS_B1 = 0xE4437ED6010E88286F547FA90ABFE4C3
+_GLV_A2 = 0x114CA50F7A8E2F3F657C1108D9D44CFD8
+_GLV_B2 = 0x3086D221A7D46BCDE86C90E49284EB15
+
+GLV_WINDOWS = 32     # 4-bit windows over |k1|, |k2| < 2^128
+GLV_COMB_TEETH = 16  # 8-bit fixed-base comb digits over |s| < 2^128
+
+
+def _round_div(a: int, b: int) -> int:
+    """round(a / b) for b > 0, exact (ties round up)."""
+    q, r = divmod(a, b)
+    return q + (1 if 2 * r >= b else 0)
+
+
+def glv_split(k: int) -> tuple[int, int]:
+    """k (mod n) -> signed (k1, k2) with k == k1 + lambda k2 (mod n) and
+    |k1|, |k2| < 2^128, by exact lattice rounding."""
+    k %= N
+    c1 = _round_div(_GLV_B2 * k, N)
+    c2 = _round_div(_GLV_MINUS_B1 * k, N)
+    k1 = k - c1 * _GLV_A1 - c2 * _GLV_A2
+    k2 = c1 * _GLV_MINUS_B1 - c2 * _GLV_B2
+    return k1, k2
+
+
+def glv_decompose(k: int) -> tuple[int, int, int, int]:
+    """glv_split with the signs folded out: (|k1|, neg1, |k2|, neg2), neg
+    in {0, 1} — the oracle every split of this module is held to."""
+    k1, k2 = glv_split(k)
+    n1, n2 = int(k1 < 0), int(k2 < 0)
+    s1, s2 = abs(k1), abs(k2)
+    assert s1 < (1 << 128) and s2 < (1 << 128), (k, k1, k2)
+    return s1, n1, s2, n2
+
+
+# the Barrett constants of the split: c~ = floor(k g / 2^384) is c or c - 1
+# of the true c = round(m k / n); one exact-residual bump recovers c
+_GLV_G1_INT = _round_div(_GLV_B2 << 384, N)
+_GLV_G2_INT = _round_div(_GLV_MINUS_B1 << 384, N)
+
+
+# ---- the fixed-base comb of G and lambda G ----------------------------------
+
+_GLV_COMB = None
+GLV_TABLE_BUILD_S = 0.0  # host build wall time of the comb
+
+
+def _words_rows(vals: list[int]) -> np.ndarray:
+    """ints < 2^256 -> (len, 8) uint32 little-endian words."""
+    blob = b"".join(v.to_bytes(32, "little") for v in vals)
+    return np.frombuffer(blob, "<u4").reshape(len(vals), 8).astype(np.uint32)
+
+
+def _glv_comb() -> np.ndarray:
+    """The fixed-base comb, the reference's layout in the kernel's form:
+    (3, GLV_COMB_TEETH, 512, 8) uint32 little-endian words,
+
+        [0, i, s 256 + d] = x(d 256^i G)
+        [1, i, s 256 + d] = y(...) for s = 0, p - y(...) for s = 1
+        [2, i, s 256 + d] = beta x(...)  (the lambda G stream; phi leaves
+                                          y alone, so it shares [1])
+
+    d = 0 entries hold the d = 1 point (the adds mask them out). Built
+    once per process from Python-int affine arithmetic (about 4,000
+    point adds), timed into GLV_TABLE_BUILD_S."""
+    global _GLV_COMB, GLV_TABLE_BUILD_S
+    if _GLV_COMB is not None:
+        return _GLV_COMB
+    t0 = time.monotonic()
+    base = G
+    xs, ys = [], []
+    for _i in range(GLV_COMB_TEETH):
+        cur = None
+        for _d in range(1, 256):
+            cur = point_add(cur, base)
+            xs.append(cur[0])
+            ys.append(cur[1])
+        for _ in range(8):
+            base = point_double(base)
+    T = GLV_COMB_TEETH
+    x = _words_rows(xs).reshape(T, 255, 8)
+    y = _words_rows(ys).reshape(T, 255, 8)
+    ny = _words_rows([P - v for v in ys]).reshape(T, 255, 8)
+    lx = _words_rows([v * BETA % P for v in xs]).reshape(T, 255, 8)
+    comb = np.zeros((3, T, 512, 8), np.uint32)
+    for c, (pos, neg) in enumerate(((x, x), (y, ny), (lx, lx))):
+        comb[c, :, 1:256] = pos
+        comb[c, :, 257:512] = neg
+        comb[c, :, 0] = pos[:, 0]
+        comb[c, :, 256] = neg[:, 0]
+    GLV_TABLE_BUILD_S = time.monotonic() - t0
+    _GLV_COMB = comb
+    return comb
+
+
+def comb_from_jax(gx, gy, lx) -> np.ndarray:
+    """The JAX package's comb ((16, 512, 20) uint32 exact 13-bit limbs
+    each) -> the port's (3, 16, 512, 8) uint32 words (_glv_comb's form)."""
+    limbs = np.stack([np.asarray(t, np.uint64) for t in (gx, gy, lx)])
+    bits = (limbs[..., None] >> np.arange(JAX_LIMB_BITS, dtype=np.uint64)) \
+        & np.uint64(1)
+    bits = bits.reshape(*limbs.shape[:-1], JAX_N_LIMBS * JAX_LIMB_BITS)
+    words = bits[..., :256].reshape(*limbs.shape[:-1], 8, 32)
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    return (words * weights).sum(-1).astype(np.uint32)
+
+
+_COMB_DEV: dict = {}
+
+
+def _comb_on(device, form: str) -> torch.Tensor:
+    """The comb on ``device``, uploaded once: ``"words"`` (3, 16, 512, 8)
+    int32 bit patterns for the kernel, ``"limbs"`` (3, 16, 512, 16) int64
+    16-bit limbs for the plain version."""
+    key = (str(device), form)
+    t = _COMB_DEV.get(key)
+    if t is None:
+        words = torch.from_numpy(_glv_comb().view(np.int32).copy())
+        if form == "limbs":
+            w = words.to(torch.int64) & 0xFFFFFFFF
+            words = torch.stack([w & MASK, w >> LIMB_BITS], -1).reshape(
+                *w.shape[:-1], N_LIMBS)
+        t = words.to(device)
+        _COMB_DEV[key] = t
+    return t
+
+
+# ---- numpy batch split and sign fold (the host-decompose pack) --------------
+# Copied from the reference: 16-bit limbs on uint64, products < 2^32,
+# column sums < 2^37.
+
+_NP16_MASK = np.uint64(0xFFFF)
+
+
+def _np_limbs16(mat: np.ndarray, width: int) -> np.ndarray:
+    """(n, nb) uint8 big-endian -> (n, width) uint64 16-bit LE limbs."""
+    rev = mat[:, ::-1].astype(np.uint64)
+    out = np.zeros((mat.shape[0], width), np.uint64)
+    half = mat.shape[1] // 2
+    out[:, :half] = rev[:, 0::2] | (rev[:, 1::2] << np.uint64(8))
+    return out
+
+
+def _np_const16(value: int, width: int) -> np.ndarray:
+    assert 0 <= value < (1 << (16 * width)), (value, width)
+    return np.array([(value >> (16 * i)) & 0xFFFF for i in range(width)],
+                    np.uint64)
+
+
+def _np_mul(a: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """(n, La) exact 16-bit limbs x (Lc,) const -> (n, La + Lc) raw
+    columns (u64-safe, un-normalized)."""
+    n, La = a.shape
+    cols = np.zeros((n, La + len(c)), np.uint64)
+    for i, ci in enumerate(c):
+        if int(ci):
+            cols[:, i:i + La] += a * ci
+    return cols
+
+
+def _np_norm(cols: np.ndarray) -> np.ndarray:
+    """Raw columns -> exact 16-bit limbs, same width (value must fit).
+    Three rounds collapse any < 2^37 magnitudes to <= 2^16 + 1; the
+    residual single-carry ripple is data-dependent on host, so loop
+    until quiescent (typically 1-2 more passes) instead of the device
+    kernel's fixed worst-case `width` rounds."""
+    v = cols
+    for _ in range(3):
+        carry = v >> np.uint64(16)
+        v = v & _NP16_MASK
+        v[:, 1:] += carry[:, :-1]
+    while True:
+        carry = v >> np.uint64(16)
+        if not carry.any():
+            return v
+        v = v & _NP16_MASK
+        v[:, 1:] += carry[:, :-1]
+
+
+def _np_sub(a: np.ndarray, b: np.ndarray) -> tuple:
+    """Limbwise a - b with borrow ripple; returns (diff, underflow).
+    underflow True where a < b (diff is then the wrapped complement)."""
+    n, width = a.shape
+    out = np.empty((n, width), np.uint64)
+    borrow = np.zeros(n, np.uint64)
+    for i in range(width):
+        v = a[:, i] - b[:, i] - borrow
+        borrow = v >> np.uint64(63)
+        out[:, i] = v + (borrow << np.uint64(16))
+    return out, borrow.astype(bool)
+
+
+def _np_ge(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return ~_np_sub(a, b)[1]
+
+
+def _np_dbl(v: np.ndarray) -> np.ndarray:
+    out = np.zeros((v.shape[0], v.shape[1] + 1), np.uint64)
+    out[:, :-1] = (v << np.uint64(1)) & _NP16_MASK
+    out[:, 1:] += v >> np.uint64(15)
+    return out
+
+
+def _np_bytes_le(limbs: np.ndarray) -> np.ndarray:
+    """(n, L) 16-bit limbs -> (n, 2L) uint8 little-endian bytes."""
+    out = np.empty((limbs.shape[0], 2 * limbs.shape[1]), np.uint8)
+    out[:, 0::2] = (limbs & np.uint64(0xFF)).astype(np.uint8)
+    out[:, 1::2] = ((limbs >> np.uint64(8)) & np.uint64(0xFF)).astype(
+        np.uint8)
+    return out
+
+
+def glv_split_batch_np(scalars: np.ndarray) -> tuple:
+    """Numpy-vectorized exact lattice split: (n, 32) big-endian scalar
+    bytes (each < n) -> (m1 (n, 8) u64 16-bit LE limbs, n1 (n,) bool,
+    m2, n2), rounding identical to glv_split (asserted differentially
+    by the unit suite)."""
+    k = _np_limbs16(np.asarray(scalars, np.uint8), 16)
+    n_16 = _np_const16(N, 16)
+
+    def round_quot(g_int: int, m_int: int) -> np.ndarray:
+        prod = _np_norm(_np_mul(k, _np_const16(g_int, 16)))    # (n, 32)
+        c_est = prod[:, 24:].copy()     # floor(· / 2^384): 24 limbs off
+        t = _np_norm(_np_mul(k, _np_const16(m_int, 8)))        # (n, 24)
+        cn = _np_norm(_np_mul(c_est, n_16))                    # (n, 24)
+        diff, under = _np_sub(t, cn)
+        two = _np_dbl(diff)
+        plus = (~under) & _np_ge(
+            two, np.broadcast_to(_np_const16(N, two.shape[1]), two.shape))
+        c_est[:, 0] += plus
+        return _np_norm(c_est)
+
+    c1 = round_quot(_GLV_G1_INT, _GLV_B2)
+    c2 = round_quot(_GLV_G2_INT, _GLV_MINUS_B1)
+    s_cols = _np_mul(c2, _np_const16(_GLV_A2, 9))              # (n, 17)
+    s_cols[:, :16] += _np_mul(c1, _np_const16(_GLV_A1, 8))
+    s = _np_norm(s_cols)
+    k_pad = np.zeros_like(s)
+    k_pad[:, :16] = k
+    d_ks, n1 = _np_sub(k_pad, s)
+    d_sk, _ = _np_sub(s, k_pad)
+    m1 = np.where(n1[:, None], d_sk, d_ks)[:, :8]
+    p1 = _np_norm(_np_mul(c1, _np_const16(_GLV_MINUS_B1, 8)))  # (n, 16)
+    p2 = _np_norm(_np_mul(c2, _np_const16(_GLV_B2, 8)))
+    d12, n2 = _np_sub(p1, p2)
+    d21, _ = _np_sub(p2, p1)
+    m2 = np.where(n2[:, None], d21, d12)[:, :8]
+    return m1, n1, m2, n2
+
+
+def glv_decompose_batch_np(scalars: np.ndarray) -> tuple:
+    """glv_decompose, vectorized: (n, 32) big-endian scalar bytes ->
+    (|k1| (n, 16) LE bytes, n1 (n,) uint8, |k2| (n, 16) LE bytes, n2)."""
+    m1, n1, m2, n2 = glv_split_batch_np(scalars)
+    return (_np_bytes_le(m1), n1.astype(np.uint8),
+            _np_bytes_le(m2), n2.astype(np.uint8))
+
+
+def field_neg_bytes_np(yb: np.ndarray) -> np.ndarray:
+    """(n, 32) big-endian y (< p) -> (n, 32) big-endian p − y, vectorized
+    (the host packer's Q-stream sign fold; y = 0 is never on the curve,
+    so the p − 0 = p edge is unreachable from parsed pubkeys)."""
+    yl = _np_limbs16(np.asarray(yb, np.uint8), 16)
+    d, under = _np_sub(
+        np.broadcast_to(_np_const16(P, 16), yl.shape).copy(), yl)
+    return _np_bytes_le(d)[:, ::-1]
+
+
+# ---- the plain PyTorch GLV versions -----------------------------------------
+
+def _t_const(value: int, width: int, device) -> torch.Tensor:
+    return torch.tensor([(value >> (16 * i)) & MASK for i in range(width)],
+                        dtype=torch.int64, device=device)
+
+
+def _t_mul(a: torch.Tensor, value: int, width: int) -> torch.Tensor:
+    """(B, La) exact 16-bit limbs x a constant of ``width`` limbs ->
+    (B, La + width) raw columns (each < 2^37)."""
+    cols = torch.zeros(a.shape[0], a.shape[1] + width, dtype=torch.int64,
+                       device=a.device)
+    for i in range(width):
+        c = (value >> (16 * i)) & MASK
+        if c:
+            cols[:, i:i + a.shape[1]] += a * c
+    return cols
+
+
+def _t_norm(v: torch.Tensor) -> torch.Tensor:
+    """Raw non-negative columns -> exact 16-bit limbs, same width, by one
+    carry ripple (the value must fit the width)."""
+    cols = list(v.unbind(-1))
+    for i in range(len(cols) - 1):
+        cols[i + 1] = cols[i + 1] + (cols[i] >> LIMB_BITS)
+        cols[i] = cols[i] & MASK
+    cols[-1] = cols[-1] & MASK
+    return torch.stack(cols, -1)
+
+
+def _t_sub(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Exact limbs a - b with a borrow ripple -> (diff, under): under
+    where a < b (diff is then the wrapped complement)."""
+    out = []
+    borrow = torch.zeros_like(a[:, 0])
+    for i in range(a.shape[1]):
+        v = a[:, i] - b[:, i] - borrow
+        borrow = (v < 0).to(torch.int64)
+        out.append(v + (borrow << LIMB_BITS))
+    return torch.stack(out, -1), borrow != 0
+
+
+def glv_split_plain(km: torch.Tensor) -> tuple:
+    """The exact limb split of the reference's _glv_split_device (and of
+    the kernel's) on (B, 32) uint8 big-endian scalars: c~ = floor(k g /
+    2^384), then one bump where e = m k - c~ n has 2e >= n. Returns (m1
+    (B, 8) int64 16-bit LE limbs of |k1|, n1 (B,) bool, m2, n2); equal to
+    glv_decompose(k) for every k < 2^256."""
+    k = _expand_limb_cols(km)                          # (B, 16)
+    dev = km.device
+    n_25 = _t_const(N, 25, dev).expand(k.shape[0], 25)
+
+    def round_quot(g_int: int, m_int: int) -> torch.Tensor:
+        c_est = _t_norm(_t_mul(k, g_int, 16))[:, 24:]   # floor(k g / 2^384)
+        t = _t_norm(_t_mul(k, m_int, 8))                # (B, 24)
+        cn = _t_norm(_t_mul(c_est, N, 16))              # (B, 24)
+        diff, under = _t_sub(t, cn)
+        two = _t_norm(F.pad(diff, (0, 1)) * 2)          # (B, 25)
+        plus = ~under & ~_t_sub(two, n_25)[1]
+        return _t_norm(c_est + F.pad(plus.to(torch.int64)[:, None], (0, 7)))
+
+    c1 = round_quot(_GLV_G1_INT, _GLV_B2)
+    c2 = round_quot(_GLV_G2_INT, _GLV_MINUS_B1)
+    s = _t_norm(F.pad(_t_mul(c1, _GLV_A1, 8), (0, 1))
+                + _t_mul(c2, _GLV_A2, 9))               # (B, 17)
+    k_pad = F.pad(k, (0, 1))
+    d_ks, n1 = _t_sub(k_pad, s)
+    m1 = torch.where(n1[:, None], _t_sub(s, k_pad)[0], d_ks)[:, :8]
+    p1 = _t_norm(_t_mul(c1, _GLV_MINUS_B1, 8))          # (B, 16)
+    p2 = _t_norm(_t_mul(c2, _GLV_B2, 8))
+    d12, n2 = _t_sub(p1, p2)
+    m2 = torch.where(n2[:, None], _t_sub(p2, p1)[0], d12)[:, :8]
+    return m1, n1, m2, n2
+
+
+def _comb_digits(m: torch.Tensor) -> torch.Tensor:
+    """(B, 8) 16-bit limbs of a value < 2^128 -> (B, 16) int64 8-bit comb
+    digits, little-endian (digit i = weight 256^i)."""
+    return torch.stack([m & 0xFF, m >> 8], -1).reshape(m.shape[0], 16)
+
+
+def _nibble_windows(m: torch.Tensor) -> torch.Tensor:
+    """(B, 8) 16-bit limbs of a value < 2^128 -> (B, 32) int64 4-bit
+    windows, MSB-first (window 0 = bits 127..124)."""
+    nib = torch.stack([(m >> s) & 0xF for s in (0, 4, 8, 12)], -1)
+    return nib.reshape(m.shape[0], 32).flip(-1)
+
+
+def _f_neg(y: torch.Tensor) -> torch.Tensor:
+    """-y mod p for y with limbs < 2^21 - 32 -> weak."""
+    return f_carry(f_sub(torch.zeros_like(y), y))
+
+
+def _glv_q_tables(qx, qy, ydiff, q_inf) -> tuple:
+    """The Q-stream tables (the reference's _glv_q_tables): T1[j] = j Q'
+    (Q' = Q with the first Q-stream sign folded into qy), by one doubling
+    and 13 cheap mixed adds whose H == 0 flags are ignored; T2[j] =
+    (beta X, -+Y, Z) of T1[j], Y negated where ydiff. Entry 0 is a dummy
+    (= entry 1; the adds mask it out). Returns two (X, Y, Z) tuples of
+    (16, B, 16) stacks."""
+    c = _consts(qx.device)
+    one = c["one"].expand_as(qx)
+    q1 = (qx, qy, one, q_inf)
+    tab = [q1, pt_double(q1)]
+    for _j in range(3, 16):
+        added, _hz = _pt_add_mixed_cheap_u(tab[-1], qx, qy, q_inf)
+        tab.append(added)
+    entries = [tab[0]] + tab
+    t1 = tuple(torch.stack([e[k] for e in entries]) for k in range(3))
+    t2 = (f_mul(c["beta"], t1[0]),
+          torch.where(ydiff[:, None], _f_neg(t1[1]), t1[1]), t1[2])
+    return t1, t2
+
+
+def _glv_window_step(carry: tuple, w1, w2, t1, t2, q_inf) -> tuple:
+    """One ladder window: 4 doublings, then the Q-stream full add (w1 from
+    T1), then the lambda Q-stream full add (w2 from T2). w1/w2: (B,) int64
+    window values."""
+    acc, degen = carry
+    for _ in range(4):
+        acc = pt_double(acc)
+    lane = torch.arange(w1.shape[0], device=w1.device)
+    for t, w in ((t1, w1), (t2, w2)):
+        q_sel = tuple(c[w, lane] for c in t) + (q_inf,)
+        act = (w != 0) & ~q_inf
+        added, hz = _pt_add_full_cheap_u(acc, q_sel)
+        acc = pt_select(act, added, acc)
+        degen = degen | (hz & act)
+    return acc, degen
+
+
+def _glv_comb_step(carry: tuple, drow, sgrow, tab_x, tab_y) -> tuple:
+    """One comb tooth for one G stream: the cheap mixed add of the entry
+    sgrow + drow of this tooth's (512, 16) tables (drow: (B,) digits,
+    0 = skip; sgrow: (B,) sign x 256)."""
+    acc, degen = carry
+    idx = sgrow + drow
+    act = drow != 0
+    added, hz = _pt_add_mixed_cheap_u(acc, tab_x[idx], tab_y[idx],
+                                      torch.zeros_like(act))
+    acc = pt_select(act, added, acc)
+    degen = degen | (hz & act)
+    return acc, degen
+
+
+def _verify_core_glv(w1, w2, d1, sg1, d2, sg2, qx, qy, ydiff, q_inf, r0, rn,
+                     wrap) -> tuple:
+    """The GLV verify core (the reference's _verify_core_glv). w1/w2:
+    (B, 32) int64 MSB-first windows of |k1|, |k2| of u2 (the Q and lambda
+    Q streams); d1/d2: (B, 16) int64 comb digits of |k1|, |k2| of u1 (the
+    G and lambda G streams); sg1/sg2: (B,) bool G-stream signs; qx/qy:
+    (B, 16) limbs, qy with the first Q-stream sign folded; ydiff, q_inf,
+    wrap: (B,) bool. Returns (ok, degen) (B,) bool."""
+    B = qx.shape[0]
+    dev = qx.device
+    t1, t2 = _glv_q_tables(qx, qy, ydiff, q_inf)
+    gx, gy, lx = _comb_on(dev, "limbs")
+    one = _consts(dev)["one"].expand_as(qx)
+    acc = (one, one, torch.zeros_like(qx),
+           torch.ones(B, dtype=torch.bool, device=dev))
+    carry = (acc, torch.zeros(B, dtype=torch.bool, device=dev))
+    for k in range(GLV_WINDOWS):
+        carry = _glv_window_step(carry, w1[:, k], w2[:, k], t1, t2, q_inf)
+    o1 = sg1.to(torch.int64) * 256
+    o2 = sg2.to(torch.int64) * 256
+    for i in range(GLV_COMB_TEETH):
+        carry = _glv_comb_step(carry, d1[:, i], o1, gx[i], gy[i])
+        carry = _glv_comb_step(carry, d2[:, i], o2, lx[i], gy[i])
+    return _verify_final(carry[0], carry[1], q_inf, r0, rn, wrap)
+
+
+def _on_live_lanes(fn, qinf8, *args) -> tuple:
+    """A plain verify on the lanes whose q_inf is clear only: a q_inf lane
+    (padding, or a poisoned record) reports ok = degen = 0 and does no
+    work, as in the kernels. args are lanes-first tensors."""
+    live = torch.nonzero(qinf8 == 0).squeeze(1)
+    if live.numel() == qinf8.shape[0]:
+        return fn(*args)
+    ok = torch.zeros(qinf8.shape[0], dtype=torch.bool, device=qinf8.device)
+    degen = torch.zeros_like(ok)
+    if live.numel():
+        ok[live], degen[live] = fn(*[a[live] for a in args])
+    return ok, degen
+
+
+def glv_dev_verify_plain(u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8):
+    """The plain version of ecdsa_verify_batch_glv_dev (the reference's
+    _glv_dev_program) on the inputs' own device: the split of u1 and u2,
+    the sign fold of qy and ydiff, then the core (live lanes only)."""
+    return _on_live_lanes(_glv_dev_verify_live, qinf8, u1m, u2m, qxb, qyb,
+                          qinf8, r0b, rnb, wrap8)
+
+
+def _glv_dev_verify_live(u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8):
+    B = qxb.shape[0]
+    m1, n1, m2, n2 = glv_split_plain(torch.cat([u1m, u2m]))
+    qy = _expand_limb_cols(qyb)
+    nb1, nb2 = n1[B:], n2[B:]
+    qy = _where(nb1, _f_neg(qy), qy)
+    return _verify_core_glv(
+        _nibble_windows(m1[B:]), _nibble_windows(m2[B:]),
+        _comb_digits(m1[:B]), n1[:B], _comb_digits(m2[:B]), n2[:B],
+        _expand_limb_cols(qxb), qy, nb1 ^ nb2, qinf8 != 0,
+        _expand_limb_cols(r0b), _expand_limb_cols(rnb), wrap8 != 0)
+
+
+def glv_verify_plain(d1m, d2m, sg1v, sg2v, s1m, s2m, ydiff8, qxb, qyb, qinf8,
+                     r0b, rnb, wrap8):
+    """The plain version of ecdsa_verify_batch_glv (the reference's
+    _glv_program) on the inputs' own device (live lanes only)."""
+    return _on_live_lanes(_glv_verify_live, qinf8, d1m, d2m, sg1v, sg2v,
+                          s1m, s2m, ydiff8, qxb, qyb, qinf8, r0b, rnb, wrap8)
+
+
+def _glv_verify_live(d1m, d2m, sg1v, sg2v, s1m, s2m, ydiff8, qxb, qyb, qinf8,
+                     r0b, rnb, wrap8):
+    return _verify_core_glv(
+        _expand_nibble_windows(s1m).T, _expand_nibble_windows(s2m).T,
+        d1m.to(torch.int64), sg1v != 0, d2m.to(torch.int64), sg2v != 0,
+        _expand_limb_cols(qxb), _expand_limb_cols(qyb), ydiff8 != 0,
+        qinf8 != 0, _expand_limb_cols(r0b), _expand_limb_cols(rnb),
+        wrap8 != 0)
+
+
+def glv_decompose_plain(km):
+    """The plain version of glv_decompose_device_batch: (B, 32) uint8
+    big-endian scalars -> (|k1| (B, 16) uint8 LE, n1 (B,) uint8, |k2|,
+    n2)."""
+    m1, n1, m2, n2 = glv_split_plain(km)
+    u8 = torch.uint8
+    return (_comb_digits(m1).to(u8), n1.to(u8), _comb_digits(m2).to(u8),
+            n2.to(u8))
+
+
+# ---- the GLV kernels: launch ------------------------------------------------
+
+# lanes a launch at most: the reference's program split
+GLV_SPLIT = 16384
+
+
+def _glv_launch(name: str, inputs: list, B: int, team: int | None = None,
+                block: int | None = None) -> torch.Tensor:
+    """Launch one GLV verify entry on the current stream: contiguous CUDA
+    inputs, then the comb; returns the (2, B) uint8 (ok, degen) rows."""
+    if team is None:
+        team, block = launch_shape(B)
+    fn = cuda_build.entry(name, [ctypes.c_void_p] * (len(inputs) + 3)
+                          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    dev = inputs[0].device
+    out = torch.empty(2, B, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(*[t.data_ptr() for t in inputs],
+            _comb_on(dev, "words").data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), B, team, block, stream)
+    cuda_build.check_launch(name, rc)
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, B)] = LAUNCH_SHAPES.get((name, B), 0) + 1
+    return out
+
+
+def _glv_split_launches(name: str, inputs: list) -> tuple:
+    """One launch per GLV_SPLIT lanes; (ok, degen) (B,) bool."""
+    B = inputs[0].shape[0]
+    outs = [_glv_launch(name, [t[s:s + GLV_SPLIT] for t in inputs],
+                        min(GLV_SPLIT, B - s))
+            for s in range(0, B, GLV_SPLIT)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out[0].view(torch.bool), out[1].view(torch.bool)
+
+
+def _u8(tensors: list) -> list:
+    return [t.to(torch.uint8).contiguous() for t in tensors]
+
+
+def ecdsa_verify_batch_glv_dev(u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8):
+    """Byte-matrix GLV verify with the split on the device (K6): the w4
+    byte entry's inputs ((B, 32) uint8 big-endian u1, u2, qx, qy, r0, rn;
+    (B,) uint8 q_inf and wrap). Returns (ok, degen) (B,) bool on the
+    inputs' device; degen lanes must be re-verified on the host."""
+    B = qxb.shape[0]
+    dev = qxb.device
+    _check([u1m, u2m, qxb, qyb, r0b, rnb], dev, [(B, 32)] * 6,
+           (torch.uint8,))
+    _check([qinf8, wrap8], dev, [(B,)] * 2, (torch.uint8, torch.bool))
+    if dev.type == "cpu":
+        return glv_dev_verify_plain(u1m, u2m, qxb, qyb, qinf8, r0b, rnb,
+                                    wrap8)
+    if dev.type != "cuda":
+        raise KernelUnavailable(f"no GLV kernel for device {dev}")
+    return _glv_split_launches("glv_dev_verify", _u8(
+        [u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8]))
+
+
+def ecdsa_verify_batch_glv(d1m, d2m, sg1v, sg2v, s1m, s2m, ydiff8, qxb, qyb,
+                           qinf8, r0b, rnb, wrap8):
+    """Byte-matrix GLV verify from the host split (K7; the arrays of
+    ops/ecdsa_batch._glv_pack_parts): (B, 16) uint8 comb digits d1m/d2m
+    (little-endian) and ladder magnitudes s1m/s2m (big-endian), (B,)
+    uint8 signs sg1v/sg2v and ydiff8, (B, 32) uint8 qx and sign-folded
+    qy, r0, rn, (B,) uint8 q_inf and wrap. Returns (ok, degen) (B,)
+    bool."""
+    B = qxb.shape[0]
+    dev = qxb.device
+    _check([d1m, d2m, s1m, s2m], dev, [(B, 16)] * 4, (torch.uint8,))
+    _check([qxb, qyb, r0b, rnb], dev, [(B, 32)] * 4, (torch.uint8,))
+    _check([sg1v, sg2v, ydiff8, qinf8, wrap8], dev, [(B,)] * 5,
+           (torch.uint8, torch.bool))
+    args = [d1m, d2m, sg1v, sg2v, s1m, s2m, ydiff8, qxb, qyb, qinf8, r0b,
+            rnb, wrap8]
+    if dev.type == "cpu":
+        return glv_verify_plain(*args)
+    if dev.type != "cuda":
+        raise KernelUnavailable(f"no GLV kernel for device {dev}")
+    return _glv_split_launches("glv_verify", _u8(args))
+
+
+def glv_decompose_device_batch(km):
+    """The split alone on the device: (B, 32) uint8 big-endian scalars ->
+    (|k1| (B, 16) uint8 little-endian, n1 (B,) uint8, |k2|, n2) on the
+    inputs' device (the reference takes and returns numpy; here tensors,
+    as every wrapper of the port)."""
+    B = km.shape[0]
+    dev = km.device
+    _check([km], dev, [(B, 32)], (torch.uint8,))
+    if dev.type == "cpu":
+        return glv_decompose_plain(km)
+    if dev.type != "cuda":
+        raise KernelUnavailable(f"no GLV kernel for device {dev}")
+    fn = cuda_build.entry("glv_decompose", [ctypes.c_void_p] * 5
+                          + [ctypes.c_int, ctypes.c_void_p])
+    km = km.contiguous()
+    m1 = torch.empty(B, 16, dtype=torch.uint8, device=dev)
+    m2 = torch.empty_like(m1)
+    n1 = torch.empty(B, dtype=torch.uint8, device=dev)
+    n2 = torch.empty_like(n1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for s in range(0, B, GLV_SPLIT):
+        n = min(GLV_SPLIT, B - s)
+        rc = fn(km[s:].data_ptr(), m1[s:].data_ptr(), n1[s:].data_ptr(),
+                m2[s:].data_ptr(), n2[s:].data_ptr(), n, stream)
+        cuda_build.check_launch("glv_decompose", rc)
+        LAUNCHES["glv_decompose"] += 1
+        LAUNCH_SHAPES[("glv_decompose", n)] = \
+            LAUNCH_SHAPES.get(("glv_decompose", n), 0) + 1
+    return m1, n1, m2, n2

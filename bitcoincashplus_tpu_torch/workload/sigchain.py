@@ -313,10 +313,11 @@ def coin_digest(cs: ChainstateManager) -> str:
     return h.hexdigest()
 
 
-def validate_chain(datadir: str, backend: str, kernel: str | None = "w4",
+def validate_chain(datadir: str, backend: str, kernel: str | None = None,
                    depth: int = 8) -> tuple:
     """Validate the stored chain from scratch through a ChainstateManager
-    with a BlockScriptVerifier(backend, kernel) and the pipelined engine
+    with a BlockScriptVerifier(backend, kernel) (kernel None: the process
+    default, -ecdsakernel=glv unless set otherwise) and the pipelined engine
     at ``depth`` — the shape of the node's block-file import loop (blocks
     in file order through process_new_block_pipelined, then the settle
     horizon drained). Returns (chainstate, summary)."""

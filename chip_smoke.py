@@ -6,14 +6,15 @@ NVIDIA card.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build   — compile each csrc/*.cu (w4_verify.cu, sha256d_sweep.cu) by
-             its own nvcc (sm_90a), all started together, from this
+1. build   — compile each csrc/*.cu (w4_verify.cu, glv_verify.cu,
+             sha256d_sweep.cu; the ECDSA pair share csrc/secp256k1_core.cuh)
+             by its own nvcc (sm_90a), all started together, from this
              checkout; print the build seconds, ptxas' registers, stack
              frame and spills per kernel, the w4 kernels' SASS local
              loads and stores (LDL / STL: the phase fails on any, or on a
-             stack frame or spill), and the sweep kernels' SASS
-             instruction counts (cuobjdump) beside the counts taken from
-             their rounds.
+             stack frame or spill), the GLV kernels' (reported, not gated),
+             and the sweep kernels' SASS instruction counts (cuobjdump)
+             beside the counts taken from their rounds.
 2. ecdsa   — the w4 field core alone (entry w4_field_selftest: fe_mul,
              fe_sqr, fe_add, fe_sub, fe_canon, the zero test and fe_eq on
              FIELD_EDGES x FIELD_EDGES and 4096 seeded random pairs)
@@ -26,8 +27,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              equal on non-degen lanes) and the verdicts after the host
              re-check against the host oracle; one line per (shape, T)
              with the time at each block size, and the launch shape the
-             wrapper's table (ops/secp256k1.W4_LAUNCH) picks beside the
-             fastest measured.
+             wrapper's table (ops/secp256k1.ECDSA_LAUNCH) picks beside the
+             fastest measured. The same for both GLV entries
+             (glv_dev_verify on the w4 byte matrices, glv_verify on the
+             host split) at B = 1024, 2048, 8192 and 16384, with
+             GLV-degenerate lanes (glv_records) and the IMAD bound of
+             glv_imad_count; the same table.
+2b. split  — the GLV split alone (glv_decompose_device_batch, entry
+             glv_decompose) through its wrapper on GLV_EDGES and 4096
+             seeded scalars (counts zeroed just before, read just after):
+             every lane equal to the Python glv_decompose, the whole equal
+             to the plain version.
 3. sweeps  — each sweep entry (sweep_h7 at tile 2^20 and at the resident
              loop's 2^16 x 8, sweep_h7_pallas at 64 x 128 lanes x 4096
              tiles, sweep_exact at tile 2^16) against its plain version:
@@ -46,16 +56,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. slice   — the block-validation main path at bench.py's reindex size:
              a 16,000-signature regtest chain from workload/sigchain.py,
              read back block by block through a ChainstateManager with
-             BlockScriptVerifier(backend="device", kernel="w4") at
-             pipeline depth 8; a small good tip and a tampered tip
-             (submitblock shape); dispatch_packed(backend="device") on
-             8190 of the chain's signatures (the native engine's slice
-             width). Launch counts are zeroed just before and read just
-             after, per entry and per shape; the blocking settle wait
-             (E.STATS.device_seconds) beside the wall. Then the same chain
-             on the CPU engine: the coin digest and best block must match. Any
-             shape the main path launched that phase 2 did not cover
-             is then held against the plain version the same way.
+             BlockScriptVerifier(backend="device") at pipeline depth 8; a
+             small good tip and a tampered tip (submitblock shape);
+             dispatch_packed(backend="device") on 8190 of the chain's
+             signatures (the native engine's slice width). Eight times,
+             in the order of PATH_ORDER (glv w4 w4 glv, twice, so that
+             neither kernel always runs first): under the default kernel
+             (GLV: glv_dev_verify launched, no w4 entry, no fallback of
+             any kind) and under -ecdsakernel=w4 (both w4 entries
+             launched). Launch counts are zeroed just before and read
+             just after each run, per entry and per shape; the blocking
+             settle wait (E.STATS.device_seconds) and the GLV emit and
+             enqueue times beside each wall, then each kernel's walls in
+             run order and their median. The coin digest and best block
+             must match the CPU engine's. Then the GLV ladder's injected
+             drills on 200 signatures: fail-always at ecdsa_glv_dev
+             launches glv_verify, at ecdsa_glv the w4 byte entry, with
+             the same verdicts. Any shape a path launched that phase 2
+             did not cover is then held against the plain version the
+             same way.
 6. mining  — the mining main path at difficulty 1 (testnet, nBits
              0x1d00ffff: 2^32 hashes a block on average): generate_blocks
              on an on-disk testnet ChainstateManager with the exact engine
@@ -65,9 +84,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              launched (counts zeroed just before each engine, read just
              after). Per engine: blocks, hashes swept, wall s, GH/s end to
              end, and the kernel's share of the wall.
-7. report  — a JSON line of the five kernels with launches on the main
-             paths, errors, times and bounds; the card's name and power
-             limit; last, {"ok": true, "device": {...}}.
+7. report  — a JSON line of the eight kernel entries with launches on
+             their paths, errors, times and bounds; the card's name and
+             power limit; last, {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 false or the port package is not importable.
@@ -79,6 +98,7 @@ import json
 import os
 import random
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -87,6 +107,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CHAIN_SIGS = 16_000          # bench.py's reindex size
 PACKED_LANES = 8190          # the native engine's dispatch slice
 PIPELINE_DEPTH = 8
+# the validation runs of phase 5, in order: each kernel as often first
+# as last, so host warm-up does not fall on one of them
+PATH_ORDER = ("glv", "w4", "w4", "glv", "glv", "w4", "w4", "glv")
 # both w4 entries at every shape: 2048 is the LanePacker's bucket, 8192
 # dispatch_packed's, 32 and 128 the plane entry's
 W4_SHAPES = (32, 128, 1024, 2048, 8192, 16384)
@@ -115,6 +138,18 @@ FIELD_EDGES = [0, 1, 2, 977, 2**32 + 977, 2**32 - 1, _P - 1, _P, _P + 1,
                (2**32 - 1) << 224, int("ffffffff00000000" * 4, 16),
                int("00000000ffffffff" * 4, 16)]
 FIELD_RANDOM_PAIRS = 4096
+# The GLV entries at the validation path's byte buckets (1024 the GLV
+# floor, 2048 the LanePacker's, 8192 dispatch_packed's) and the split size
+GLV_SHAPES = (1024, 2048, 8192, 16384)
+# the split's edges: 0, 1, 2, n - 1, n - 2, lambda and its neighbours,
+# n - lambda, n / 2, 2^128 and 2^128 - 1, 2^255, and scalars of all-ones
+# limbs or words (2^256 - 1 above n: the split of k equals that of k mod n)
+_N = 2**256 - 0x14551231950B75FC4402DA1732FC9BEBF
+_LAMBDA = 0x5363AD4CC05C30E0A5261C028812645A122E22EA20816678DF02967C1B23BD72
+GLV_EDGES = [0, 1, 2, _N - 1, _N - 2, _LAMBDA, _LAMBDA - 1, _LAMBDA + 1,
+             _N - _LAMBDA, _N // 2, 2**128, 2**128 - 1, 2**255, 2**127,
+             int("1fff" * 16, 16) % _N, 2**256 - 1]
+GLV_RANDOM_SCALARS = 4096
 # H100: 64 32-bit integer operations (IADD3, LOP3, SHF, PRMT, ISETP) per
 # SM per clock (CUDA C++ Programming Guide, arithmetic instruction
 # throughput, cc 9.0)
@@ -210,6 +245,29 @@ def craft_lanes(arrays: dict, n: int, be: bool) -> dict:
     return kinds
 
 
+def glv_records(n: int, seed: int) -> list:
+    """signed_records with a GLV-degenerate lane every 89 lanes (from lane
+    20): pubkey G and verify scalars u1 = a + d 256^j, u2 = d 256^j - a
+    (a < 256^j, both below 2^127, so k1 = u and k2 = 0): the ladder leaves
+    (d 256^j - a) G, the comb's teeth 0 .. j-1 add a G, and tooth j adds
+    d 256^j G to itself (H == 0). The signature is valid. (signed_records'
+    own degenerate lanes collide only in the w4 schedule.)"""
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+    from bitcoincashplus_tpu_torch.script.interpreter import SigCheckRecord
+
+    out = signed_records(n, seed)
+    rng = random.Random(seed + 1)
+    for i in range(20, n, 89):
+        j = rng.randrange(15)
+        a = rng.randrange(256 ** j)
+        top = rng.randrange(1, 256) * 256 ** j
+        u1, u2 = a + top, top - a
+        r = O.point_mul(u1 + u2, O.G)[0] % O.N
+        s_ = r * pow(u2, O.N - 2, O.N) % O.N
+        out[i] = SigCheckRecord(O.G, r, s_, u1 * s_ % O.N)
+    return out
+
+
 def imad_count(u1w, u2w, q_inf) -> int:
     """The least 32-bit IMADs the verify needs on this data: per finite
     lane the Q table, then from the first nonzero window on 4 doublings
@@ -236,6 +294,80 @@ def imad_count(u1w, u2w, q_inf) -> int:
              # first window: a Q add follows a G copy into infinity
              + fadd * ((u1w != 0) & (u2w != 0) & at).sum(1))
     return int(imads[live].sum())
+
+
+def glv_imad_count(ladder, comb, q_inf, split: bool) -> int:
+    """The least 32-bit IMADs a GLV verify needs on this data, per finite
+    lane: the T1 build, 15 beta X products (the lambda Q table), from the
+    first nonzero window on 4 doublings a window, a cheap full add per
+    nonzero window (the first add into infinity is a copy), a cheap mixed
+    add per nonzero comb digit (a copy if the ladder left infinity), the
+    final check, and with ``split`` the lattice split of u1 and u2 (324
+    products of 32 x 32 -> 64 bits a scalar, two IMADs each). ladder:
+    (B, 64) windows, the Q and lambda Q stream of each window in turn;
+    comb: (B, 32) digits, the G and lambda G digit of each tooth in
+    turn."""
+    import numpy as np
+
+    dbl, madd, fadd, final = (s * IMAD_PER_FSQR + m * IMAD_PER_FMUL
+                              for s, m in (SQR_MUL_DOUBLE, SQR_MUL_MADD,
+                                           SQR_MUL_FADD, SQR_MUL_FINAL))
+    ladder = np.asarray(ladder) != 0
+    comb = np.asarray(comb) != 0
+    live = ~np.asarray(q_inf, bool)
+    window = ladder.reshape(-1, 32, 2).any(2)
+    first = np.where(window.any(1), window.argmax(1), 32)
+    doublings = np.maximum(0, 31 - first)
+    started = window.any(1)
+    fadds = ladder.sum(1) - started
+    madds = comb.sum(1) - (~started & comb.any(1))
+    imads = (dbl + 13 * madd + 15 * IMAD_PER_FMUL + final
+             + 4 * dbl * doublings + fadd * fadds + madd * madds
+             + (2 * 2 * 324 if split else 0))
+    return int(imads[live].sum())
+
+
+def hold(ok_k, dg_k, plain_out, oracle, kinds: dict, n: int,
+         where: str) -> tuple:
+    """Hold one kernel result (ok, degen) against the plain version's and
+    the oracle's: degen equal everywhere, ok equal on non-degen lanes, the
+    verdicts after the host re-check of degen lanes equal to the oracle on
+    the uncrafted record lanes, q_inf and padding lanes silent, the wrap
+    gate right, at least one degen lane. Returns (max_abs_err, degen
+    lanes)."""
+    import numpy as np
+
+    ok_p, dg_p = (t.cpu().numpy() for t in plain_out)
+    ok_k, dg_k = ok_k.cpu().numpy(), dg_k.cpu().numpy()
+    crafted = set(kinds["q_inf"]) | set(kinds["wrap_on"]) | \
+        set(kinds["wrap_off"])
+    plain_lanes = np.array([i not in crafted for i in range(n)])
+    err = max(int(np.abs(ok_k.astype(int) - ok_p.astype(int))[~dg_k].max(
+        initial=0)), int(np.abs(dg_k.astype(int) - dg_p.astype(int)).max()))
+    if not np.array_equal(dg_k, dg_p):
+        raise AssertionError(f"{where}: degen planes differ at "
+                             f"{np.nonzero(dg_k != dg_p)[0][:10]}")
+    nd = ~dg_k
+    if not np.array_equal(ok_k[nd], ok_p[nd]):
+        raise AssertionError(f"{where}: ok differs on non-degen lanes "
+                             f"{np.nonzero((ok_k != ok_p) & nd)[0][:10]}")
+    # verdicts after the host re-check of degen lanes, on the record lanes
+    final = np.where(dg_k[:n], oracle, ok_k[:n])
+    if not np.array_equal(final[plain_lanes], oracle[plain_lanes]):
+        raise AssertionError(f"{where}: verdicts differ from the oracle")
+    if ok_k[kinds["q_inf"]].any() or dg_k[kinds["q_inf"]].any():
+        raise AssertionError(f"{where}: a q_inf lane reported")
+    if ok_k[n:].any() or dg_k[n:].any():
+        raise AssertionError(f"{where}: a padding lane reported")
+    # degen lanes carry garbage by contract: the gate is read on the rest
+    won = [i for i in kinds["wrap_on"] if not dg_k[i]]
+    woff = [i for i in kinds["wrap_off"] if not dg_k[i]]
+    if not np.array_equal(ok_k[won], oracle[won]) or ok_k[woff].any():
+        raise AssertionError(f"{where}: wrap gate wrong")
+    n_degen = int(dg_k.sum())
+    if n_degen < 1:
+        raise AssertionError(f"{where}: no degenerate lane flagged")
+    return err, n_degen
 
 
 # ---- phases -----------------------------------------------------------------
@@ -324,44 +456,12 @@ def kernel_case(entry: str, B: int, seed: int, clock_hz: float,
     # contract); its entry is launched directly at the smaller shapes
     wrapped = not be or B % 1024 == 0
 
-    plain_ms, (ok_p, dg_p) = time_once(lambda: plain(*tens), dev)
-    ok_p, dg_p = ok_p.cpu().numpy(), dg_p.cpu().numpy()
+    plain_ms, plain_out = time_once(lambda: plain(*tens), dev)
     oracle = host_oracle(recs)
-    crafted = set(kinds["q_inf"]) | set(kinds["wrap_on"]) | \
-        set(kinds["wrap_off"])
-    plain_lanes = np.array([i not in crafted for i in range(n)])
 
     def check(ok_k, dg_k, what: str) -> tuple:
-        """Hold one kernel result against the plain version and the
-        oracle; returns (max_abs_err, degen lanes)."""
-        ok_k, dg_k = ok_k.cpu().numpy(), dg_k.cpu().numpy()
-        err = max(int(np.abs(ok_k.astype(int) - ok_p.astype(int))[~dg_k].max(
-            initial=0)), int(np.abs(dg_k.astype(int) - dg_p.astype(int)).max()))
-        where = f"{entry} B={B} {what}"
-        if not np.array_equal(dg_k, dg_p):
-            raise AssertionError(f"{where}: degen planes differ at "
-                                 f"{np.nonzero(dg_k != dg_p)[0][:10]}")
-        nd = ~dg_k
-        if not np.array_equal(ok_k[nd], ok_p[nd]):
-            raise AssertionError(f"{where}: ok differs on non-degen lanes "
-                                 f"{np.nonzero((ok_k != ok_p) & nd)[0][:10]}")
-        # verdicts after the host re-check of degen lanes, on the record lanes
-        final = np.where(dg_k[:n], oracle, ok_k[:n])
-        if not np.array_equal(final[plain_lanes], oracle[plain_lanes]):
-            raise AssertionError(f"{where}: verdicts differ from the oracle")
-        if ok_k[kinds["q_inf"]].any() or dg_k[kinds["q_inf"]].any():
-            raise AssertionError(f"{where}: a q_inf lane reported")
-        if ok_k[n:].any() or dg_k[n:].any():
-            raise AssertionError(f"{where}: a padding lane reported")
-        # degen lanes carry garbage by contract: the gate is read on the rest
-        won = [i for i in kinds["wrap_on"] if not dg_k[i]]
-        woff = [i for i in kinds["wrap_off"] if not dg_k[i]]
-        if not np.array_equal(ok_k[won], oracle[won]) or ok_k[woff].any():
-            raise AssertionError(f"{where}: wrap gate wrong")
-        n_degen = int(dg_k.sum())
-        if n_degen < 1:
-            raise AssertionError(f"{where}: no degenerate lane flagged")
-        return err, n_degen
+        return hold(ok_k, dg_k, plain_out, oracle, kinds, n,
+                    f"{entry} B={B} {what}")
 
     times, errs = {}, []
     if dev.type == "cuda":
@@ -401,6 +501,147 @@ def kernel_case(entry: str, B: int, seed: int, clock_hz: float,
             "imads": imads, "max_abs_err": max(errs), "degen_lanes": n_degen,
             "sigs_per_s": B / (ms / 1e3), "shape": shape,
             "times": {f"{t}x{b}": v for (t, b), v in times.items()}}
+
+
+def glv_case(entry: str, B: int, seed: int, clock_hz: float,
+             device: str = "cuda") -> dict:
+    """One GLV entry (glv_dev_verify from the w4 byte matrices, glv_verify
+    from the host split of ops/ecdsa_batch.pack_records_glv) at one shape:
+    the kernel at every team size and block size against the plain
+    version on the card (hold), times, and the IMAD bound. (On a CPU
+    device the wrapper itself takes the plain version: a rehearsal.)"""
+    import numpy as np
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    n = B - 3  # three padding lanes (q_inf by the packer)
+    recs = glv_records(n, seed)
+    dev_split = entry == "glv_dev_verify"
+    if dev_split:
+        names = ("u1", "u2", "qx", "qy", "q_inf", "r0", "rn", "wrap")
+        packed = E.pack_records_w4_bytes(recs, B)
+    else:
+        names = ("d1", "d2", "sg1", "sg2", "s1", "s2", "ydiff", "qx", "qy",
+                 "q_inf", "r0", "rn", "wrap")
+        packed = E.pack_records_glv(recs, B)
+    arrays = dict(zip(names, [np.ascontiguousarray(x).copy()
+                              for x in packed]))
+    kinds = craft_lanes(arrays, n, True)
+    dev = torch.device(device)
+    tens = [torch.from_numpy(arrays[k]).to(dev) for k in names]
+    wrapper = (S.ecdsa_verify_batch_glv_dev if dev_split
+               else S.ecdsa_verify_batch_glv)
+    plain = S.glv_dev_verify_plain if dev_split else S.glv_verify_plain
+    plain_ms, plain_out = time_once(lambda: plain(*tens), dev)
+    oracle = host_oracle(recs)
+
+    def check(ok_k, dg_k, what: str) -> tuple:
+        return hold(ok_k, dg_k, plain_out, oracle, kinds, n,
+                    f"{entry} B={B} {what}")
+
+    times, errs = {}, []
+    if dev.type == "cuda":
+        for team in W4_TEAMS:
+            for block in W4_BLOCKS:
+                def launch(team=team, block=block):
+                    out = S._glv_launch(entry, tens, B, team, block)
+                    return out[0].view(torch.bool), out[1].view(torch.bool)
+
+                err, n_degen = check(*launch(), f"T={team} block={block}")
+                errs.append(err)
+                times[team, block] = time_cuda(launch,
+                                               20 if B <= 8192 else 10)
+        shape = S.launch_shape(B)
+        err, n_degen = check(*wrapper(*tens), "wrapper")
+        errs.append(err)
+        ms = times[shape]
+    else:
+        shape = None
+        ms, out = time_once(lambda: wrapper(*tens), dev)
+        err, n_degen = check(*out, "wrapper")
+        errs.append(err)
+    if dev_split:
+        m1, _n1, m2, _n2 = (t.cpu().numpy() for t in S.glv_decompose_plain(
+            torch.cat([tens[0], tens[1]]).cpu()))
+        ladder_b = [np.unpackbits(m[B:], axis=1, bitorder="little")
+                    for m in (m1, m2)]
+        comb_bytes = np.stack([m1[:B], m2[:B]], 2).reshape(B, 32)
+        in_bytes = B * (6 * 32 + 2)
+    else:
+        ladder_b = [np.unpackbits(arrays[k][:, ::-1], axis=1,
+                                  bitorder="little") for k in ("s1", "s2")]
+        comb_bytes = np.stack([arrays["d1"], arrays["d2"]], 2).reshape(B, 32)
+        in_bytes = B * (4 * 16 + 3 + 4 * 32 + 2)
+    # MSB-first windows of each stream, interleaved Q / lambda Q
+    wins = [(b.reshape(B, 32, 4) * (1 << np.arange(4))).sum(2)[:, ::-1]
+            for b in ladder_b]
+    ladder = np.stack(wins, 2).reshape(B, 64)
+    imads = glv_imad_count(ladder, comb_bytes, arrays["q_inf"] != 0,
+                           dev_split)
+    ops_ms = imads / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3
+    comb_bytes_total = 3 * 16 * 512 * 32  # the comb, read once
+    bytes_ms = (in_bytes + comb_bytes_total + 2 * B) / HBM_BYTES_S * 1e3
+    return {"B": B, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "imads": imads, "max_abs_err": max(errs), "degen_lanes": n_degen,
+            "sigs_per_s": B / (ms / 1e3), "shape": shape,
+            "times": {f"{t}x{b}": v for (t, b), v in times.items()}}
+
+
+def glv_decompose_phase(clock_hz: float, seed: int = 11,
+                        device: str = "cuda") -> dict:
+    """The decompose-only surface (glv_decompose_device_batch, entry
+    glv_decompose) driven through its wrapper on GLV_EDGES and
+    GLV_RANDOM_SCALARS seeded scalars below n, counts zeroed just before
+    and read just after; every lane equal to the Python glv_decompose,
+    and the whole output equal to the plain version's on the card (error
+    0). Then the kernel timed and its bound."""
+    import numpy as np
+    import torch
+
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    rng = random.Random(seed)
+    ks = GLV_EDGES + [rng.randrange(O.N) for _ in range(GLV_RANDOM_SCALARS)]
+    km = torch.from_numpy(np.frombuffer(
+        b"".join(k.to_bytes(32, "big") for k in ks), np.uint8).reshape(
+            len(ks), 32).copy()).to(device)
+    S.reset_launch_counts()
+    out = S.glv_decompose_device_batch(km)
+    launches = S.LAUNCHES["glv_decompose"]
+    got = [t.cpu().numpy() for t in out]
+    bad = []
+    for i, k in enumerate(ks):
+        lane = (int.from_bytes(got[0][i].tobytes(), "little"),
+                int(got[1][i]), int.from_bytes(got[2][i].tobytes(), "little"),
+                int(got[3][i]))
+        if lane != S.glv_decompose(k):
+            bad.append(hex(k))
+    if bad:
+        raise AssertionError(f"glv_decompose: {len(bad)} lanes differ from "
+                             f"the Python split, first {bad[:5]}")
+    dev = torch.device(device)
+    plain_ms, ref = time_once(lambda: S.glv_decompose_plain(km), dev)
+    err = max(int(np.abs(a.astype(int) - b.cpu().numpy().astype(int)).max())
+              for a, b in zip(got, ref))
+    if err:
+        raise AssertionError(f"glv_decompose: differs from the plain "
+                             f"version by {err}")
+    if dev.type == "cuda":
+        ms = time_cuda(lambda: S.glv_decompose_device_batch(km), 20)
+    else:
+        ms = time_once(lambda: S.glv_decompose_device_batch(km), dev)[0]
+    B = len(ks)
+    ops_ms = B * 2 * 324 / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3
+    bytes_ms = B * (32 + 2 * 16 + 2) / HBM_BYTES_S * 1e3
+    return {"B": B, "edges": len(GLV_EDGES), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "max_abs_err": err, "launches": launches}
 
 
 def field_selftest(seed: int = 7) -> dict:
@@ -461,18 +702,158 @@ def field_selftest(seed: int = 7) -> dict:
             "random_pairs": FIELD_RANDOM_PAIRS, "errors": 0}
 
 
+def _zero_counts() -> None:
+    from bitcoincashplus_tpu_torch.ops import dispatch
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    dispatch.reset()
+    E.STATS.__init__()
+    S.reset_launch_counts()
+
+
+def _read_counts() -> dict:
+    from bitcoincashplus_tpu_torch.ops import dispatch
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    return {"launches": dict(S.LAUNCHES),
+            "launch_shapes": sorted([name, B, n] for (name, B), n
+                                    in S.LAUNCH_SHAPES.items()),
+            "stats": E.STATS.snapshot(),
+            "healthy": dispatch.breaker("ecdsa").healthy()}
+
+
+STAT_KEYS = ("dispatches", "sigs_verified", "cpu_fallback_sigs",
+             "fault_fallback_sigs", "kat_failures", "degenerate_rechecks",
+             "reject_confirm_sigs", "device_seconds", "buckets_used",
+             "glv_dispatches", "glv_dev_dispatches", "glv_fallbacks",
+             "glv_dev_fallbacks", "glv_emit_s", "glv_dispatch_s")
+GLV_ENTRIES = ("glv_dev_verify", "glv_verify", "glv_decompose")
+W4_ENTRIES = ("w4_verify_bytes", "w4_verify_planes")
+
+
+def path_run(workdir: str, gen: dict, blobs: tuple, cpu: dict,
+             cpu_packed, kernel: str | None) -> dict:
+    """One run of the validation main path, counts zeroed just before and
+    read just after: validate_chain(kernel) at PIPELINE_DEPTH, the
+    tampered and the good tip, dispatch_packed on the packed blobs (under
+    the same kernel as the process default). kernel None is the default,
+    GLV; "w4" the rung below it. Checks against the CPU engine's run."""
+    import numpy as np
+
+    from bitcoincashplus_tpu_torch.consensus.block import CBlock
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.validation.chain import BlockStatus
+    from bitcoincashplus_tpu_torch.workload import sigchain
+
+    if kernel is None and E.active_kernel() != "glv":
+        raise AssertionError(f"the default kernel is {E.active_kernel()}")
+    if kernel:
+        E.set_kernel(kernel)
+    try:
+        _zero_counts()
+        t0 = time.monotonic()
+        cs, dev = sigchain.validate_chain(workdir, "device", kernel=kernel,
+                                          depth=PIPELINE_DEPTH)
+        wall = time.monotonic() - t0
+        bad = CBlock.from_bytes(gen["tampered_tip"])
+        good = CBlock.from_bytes(gen["good_tip"])
+        confirm0 = E.STATS.reject_confirm_sigs
+        cs.process_new_block(bad)
+        bad_idx = cs.block_index[bad.get_hash()]
+        bad_rejected = (bool(bad_idx.status & BlockStatus.FAILED_VALID)
+                        and cs.tip().hash == dev_tip(dev))
+        bad_device_false = E.STATS.reject_confirm_sigs - confirm0
+        cs.process_new_block(good)
+        good_accepted = cs.tip().hash == good.get_hash()
+        packed = E.dispatch_packed(*blobs, backend="device").result()
+        counts = _read_counts()
+    finally:
+        if kernel:
+            E.set_kernel("glv")
+    launches, stats = counts["launches"], counts["stats"]
+    glv = kernel is None
+    ran, idle = (GLV_ENTRIES[:1], W4_ENTRIES + GLV_ENTRIES[1:]) if glv \
+        else (W4_ENTRIES, GLV_ENTRIES)
+    checks = {
+        "digest_equal": dev["digest"] == cpu["digest"],
+        "best_equal": dev["best"] == cpu["best"],
+        "tampered_rejected": bad_rejected and bad_device_false >= 1,
+        "good_tip_accepted": good_accepted,
+        "packed_equal_native": bool(np.array_equal(packed, cpu_packed)),
+        **{f"launched_{name}": launches[name] > 0 for name in ran},
+        **{f"idle_{name}": launches[name] == 0 for name in idle},
+        "no_cpu_fallback": stats["cpu_fallback_sigs"] == 0,
+        "no_fault_fallback": stats["fault_fallback_sigs"] == 0,
+        "no_kat_failures": stats["kat_failures"] == 0,
+        "no_glv_fallback": stats["glv_fallbacks"] == 0
+        and stats["glv_dev_fallbacks"] == 0,
+        "breaker_healthy": counts["healthy"],
+    }
+    return {"kernel": kernel or "glv", "device": dev, "wall_s": wall,
+            "sigs": gen["sigs"], "sigs_per_s": gen["sigs"] / wall,
+            "launches": launches, "launch_shapes": counts["launch_shapes"],
+            "stats": {k: stats[k] for k in STAT_KEYS},
+            "packed_false": int((~packed).sum()), "checks": checks}
+
+
+def drill_phase(n: int = 200, seed: int = 500) -> dict:
+    """The GLV ladder's injected drills (BCP_FAULT_MODE=fail-always) on n
+    seeded signatures through verify_batch(backend="device"): at
+    ecdsa_glv_dev the device-split leg steps down to glv_verify, at
+    ecdsa_glv (consulted by both GLV legs) to the w4 byte entry. Counts
+    zeroed just before each drill and read just after; both drills'
+    verdicts equal each other and the oracle, nothing served by the
+    CPU."""
+    import numpy as np
+
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.util import faults
+
+    recs = signed_records(n, seed)
+    want = host_oracle(recs)
+    expect = {E.GLV_DEV_SITE: "glv_verify", E.GLV_SITE: "w4_verify_bytes"}
+    rows, verdicts = {}, []
+    for site, entry in expect.items():
+        os.environ.update(BCP_FAULT_MODE="fail-always", BCP_FAULT_OPS=site)
+        faults.INJECTOR.reload()
+        try:
+            _zero_counts()
+            got = E.verify_batch(recs, backend="device")
+            counts = _read_counts()
+        finally:
+            for k in ("BCP_FAULT_MODE", "BCP_FAULT_OPS"):
+                os.environ.pop(k, None)
+            faults.INJECTOR.reload()
+        launches, stats = counts["launches"], counts["stats"]
+        verdicts.append(got)
+        checks = {
+            "equal_oracle": bool(np.array_equal(got, want)),
+            f"launched_{entry}": launches[entry] == 1,
+            "nothing_else": sum(launches.values()) == 1,
+            "no_cpu_fallback": stats["cpu_fallback_sigs"] == 0,
+            "no_fault_fallback": stats["fault_fallback_sigs"] == 0,
+        }
+        rows[site] = {"entry": entry, "launches": launches,
+                      "launch_shapes": counts["launch_shapes"],
+                      "stats": {k: stats[k] for k in STAT_KEYS},
+                      "checks": checks}
+    rows["verdicts_equal"] = bool(np.array_equal(*verdicts))
+    return rows
+
+
 def slice_phase(workdir: str, sigs: int = CHAIN_SIGS,
                 packed_lanes: int = PACKED_LANES, **gen_kw) -> dict:
-    """The main path at the reindex size (see the module docstring);
+    """The validation main paths at the reindex size (see the module
+    docstring): the chain generated once, the CPU engine's run, then the
+    path under GLV (the default) and under w4 in the order of PATH_ORDER,
+    then the drills.
     ``gen_kw`` passes through to sigchain.generate."""
     import numpy as np
 
     from bitcoincashplus_tpu_torch import native
-    from bitcoincashplus_tpu_torch.consensus.block import CBlock
-    from bitcoincashplus_tpu_torch.ops import dispatch
     from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
-    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
-    from bitcoincashplus_tpu_torch.validation.chain import BlockStatus
     from bitcoincashplus_tpu_torch.workload import sigchain
 
     if not native.available():
@@ -485,61 +866,16 @@ def slice_phase(workdir: str, sigs: int = CHAIN_SIGS,
     pub, rs, msg, rn, wrap = E.records_to_blobs(recs)
     msg = msg.copy()
     msg[::1000, 31] ^= 1  # a few lanes that must fail
+    blobs = (pub, rs, msg, rn, wrap)
     cpu_packed = np.asarray(native.ecdsa_verify_batch_blobs(
         pub.tobytes(), rs.tobytes(), msg.tobytes(), len(msg)), bool)
-
-    # ---- the main path, counts zeroed just before --------------------
-    dispatch.reset()
-    E.STATS.__init__()
-    S.reset_launch_counts()
-    t0 = time.monotonic()
-    cs, dev = sigchain.validate_chain(workdir, "device", kernel="w4",
-                                      depth=PIPELINE_DEPTH)
-    wall = time.monotonic() - t0
-    bad = CBlock.from_bytes(gen["tampered_tip"])
-    good = CBlock.from_bytes(gen["good_tip"])
-    confirm0 = E.STATS.reject_confirm_sigs
-    cs.process_new_block(bad)
-    bad_idx = cs.block_index[bad.get_hash()]
-    bad_rejected = (bool(bad_idx.status & BlockStatus.FAILED_VALID)
-                    and cs.tip().hash == dev_tip(dev))
-    bad_device_false = E.STATS.reject_confirm_sigs - confirm0
-    cs.process_new_block(good)
-    good_accepted = cs.tip().hash == good.get_hash()
-    packed = E.dispatch_packed(pub, rs, msg, rn, wrap,
-                               backend="device").result()
-    launches = dict(S.LAUNCHES)
-    launch_shapes = sorted([name, B, n]
-                           for (name, B), n in S.LAUNCH_SHAPES.items())
-    stats = E.STATS.snapshot()
-    healthy = dispatch.breaker("ecdsa").healthy()
-    # ---- read just after ---------------------------------------------
-
     _cs_cpu, cpu = sigchain.validate_chain(workdir, "cpu", depth=1)
-    checks = {
-        "digest_equal": dev["digest"] == cpu["digest"],
-        "best_equal": dev["best"] == cpu["best"],
-        "tampered_rejected": bad_rejected and bad_device_false >= 1,
-        "good_tip_accepted": good_accepted,
-        "packed_equal_native": bool(np.array_equal(packed, cpu_packed)),
-        "launches_bytes": launches["w4_verify_bytes"] > 0,
-        "launches_planes": launches["w4_verify_planes"] > 0,
-        "no_cpu_fallback": stats["cpu_fallback_sigs"] == 0,
-        "no_fault_fallback": stats["fault_fallback_sigs"] == 0,
-        "no_kat_failures": stats["kat_failures"] == 0,
-        "breaker_healthy": healthy,
-    }
+    runs = [path_run(workdir, gen, blobs, cpu, cpu_packed,
+                     None if kern == "glv" else kern)
+            for kern in PATH_ORDER]
     return {"gen": {k: v for k, v in gen.items() if "tip" not in k},
-            "device": dev, "cpu": {k: cpu[k] for k in ("digest", "best",
-                                                      "wall_s")},
-            "wall_s": wall, "sigs": gen["sigs"],
-            "sigs_per_s": gen["sigs"] / wall, "launches": launches,
-            "launch_shapes": launch_shapes,
-            "stats": {k: stats[k] for k in (
-                "dispatches", "sigs_verified", "cpu_fallback_sigs",
-                "fault_fallback_sigs", "kat_failures", "degenerate_rechecks",
-                "reject_confirm_sigs", "device_seconds", "buckets_used")},
-            "packed_false": int((~packed).sum()), "checks": checks}
+            "cpu": {k: cpu[k] for k in ("digest", "best", "wall_s")},
+            "runs": runs, "drills": drill_phase()}
 
 
 # ---- the sweep kernels ------------------------------------------------------
@@ -602,6 +938,8 @@ def sweep_ops_per_nonce(exact: bool) -> dict:
 W4_KERNELS = ("w4_verify_bytes_kernel", "w4_verify_planes_kernel",
               "w4_field_selftest_kernel")
 SWEEP_KERNELS = ("sweep_h7_kernel", "sweep_exact_kernel")
+GLV_KERNELS = ("glv_dev_verify_kernel", "glv_verify_kernel",
+               "glv_decompose_kernel")
 _ALU_ONLY = ("SHF", "SHL", "SHR", "LOP3", "PRMT", "ISETP")
 _NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
             "ATOM", "RED", "S2R", "NOP", "BSSY", "BSYNC", "WARPSYNC", "LDC",
@@ -609,12 +947,13 @@ _NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
 
 
 def _kernel_key(name: str) -> str:
-    """A mangled kernel name -> the name of W4_KERNELS or SWEEP_KERNELS it
-    holds, ``kernel<T>`` for a template instance (the name itself when it
-    holds none)."""
+    """A mangled kernel name -> the name of W4_KERNELS, GLV_KERNELS or
+    SWEEP_KERNELS it holds, ``kernel<T>`` for a template instance (the name
+    itself when it holds none)."""
     import re
 
-    key = next((k for k in W4_KERNELS + SWEEP_KERNELS if k in name), None)
+    key = next((k for k in W4_KERNELS + GLV_KERNELS + SWEEP_KERNELS
+                if k in name), None)
     t = key and re.search(key + r"ILi(\d+)E", name)
     return f"{key}<{t.group(1)}>" if t else (key or name)
 
@@ -1076,6 +1415,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from bitcoincashplus_tpu_torch.ops import cuda_build
+        from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
         from bitcoincashplus_tpu_torch.ops import secp256k1 as S
         from bitcoincashplus_tpu_torch.ops import sha256_sweep as SW
     except ImportError as e:
@@ -1106,7 +1446,8 @@ def main() -> int:
         log(f"ptxas: {fn}: {r}")
     sass = {}
     for lib in info["libraries"].values():
-        sass.update(sass_counts(lib, W4_KERNELS + SWEEP_KERNELS) or {})
+        sass.update(sass_counts(lib, W4_KERNELS + GLV_KERNELS
+                                + SWEEP_KERNELS) or {})
     # the w4 kernels keep every value in registers and shared memory: no
     # stack frame, no spill, no local load or store in their SASS
     w4 = {fn: r for fn, r in ptxas.items() if "w4_" in fn}
@@ -1123,6 +1464,14 @@ def main() -> int:
            for r in w4.values()) or any(local.values()):
         raise AssertionError(f"w4 kernels use local memory: ptxas {w4}, "
                              f"SASS LDL/STL {local}")
+    # the GLV kernels: reported, not gated
+    glv_build = {k: {**ptxas.get(k, {}),
+                     "sass_total": sass.get(k, {}).get("total"),
+                     "ldl_stl": sass.get(k, {}).get("local")}
+                 for k in sorted(set(ptxas) | set(sass))
+                 if k.startswith(GLV_KERNELS)}
+    for k, v in glv_build.items():
+        log(f"GLV build: {k}: {v}")
     # the sweep bound: ALU-pipe instructions a nonce, counted from the
     # rounds and checked against the kernels' SASS (the lower count holds)
     ops = {}
@@ -1146,10 +1495,18 @@ def main() -> int:
     # team size and block size
     selftest = field_selftest()
     log(f"w4_field_selftest: {json.dumps(selftest)}")
-    seeds = {"w4_verify_bytes": 100, "w4_verify_planes": 200}
-    cases = {name: [kernel_case(name, B, seeds[name] + i, clock_hz)
-                    for i, B in enumerate(W4_SHAPES)]
+    seeds = {"w4_verify_bytes": 100, "w4_verify_planes": 200,
+             "glv_dev_verify": 600, "glv_verify": 700}
+    case_fn = {name: glv_case if name.startswith("glv") else kernel_case
+               for name in seeds}
+    cases = {name: [case_fn[name](name, B, seeds[name] + i, clock_hz)
+                    for i, B in enumerate(GLV_SHAPES if name.startswith("glv")
+                                          else W4_SHAPES)]
              for name in seeds}
+    # 2b. the GLV split alone, through its own entry point
+    decomp = glv_decompose_phase(clock_hz)
+    log(f"glv_decompose: {json.dumps(decomp)}; every lane equal to the "
+        f"Python split and to the plain version")
     for name, rows in cases.items():
         for r in rows:
             fastest = min(r["times"], key=r["times"].get)
@@ -1210,21 +1567,43 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"slice: {json.dumps(sl, sort_keys=True)}")
-    log(f"slice: {sl['sigs']} sigs in {sl['wall_s']:.3f} s; blocking "
-        f"settle wait (E.STATS.device_seconds) "
-        f"{sl['stats']['device_seconds']:.4f} s = "
-        f"{100 * sl['stats']['device_seconds'] / sl['wall_s']:.2f}% of the "
-        f"wall")
-    failed = [k for k, v in sl["checks"].items() if not v]
+    failed = []
+    for i, run in enumerate(sl["runs"]):
+        kern, st = run["kernel"], run["stats"]
+        log(f"slice run {i} ({kern}): {run['sigs']} sigs in "
+            f"{run['wall_s']:.3f} s = {run['sigs_per_s']:.0f} sigs/s; "
+            f"blocking settle wait (E.STATS.device_seconds) "
+            f"{st['device_seconds']:.4f} s = "
+            f"{100 * st['device_seconds'] / run['wall_s']:.2f}% of the "
+            f"wall; GLV emit {st['glv_emit_s']:.4f} s, enqueue "
+            f"{st['glv_dispatch_s']:.4f} s; launches {run['launches']}")
+        failed += [f"run {i} ({kern}): {k}"
+                   for k, v in run["checks"].items() if not v]
+    drills = sl["drills"]
+    for site in (E.GLV_DEV_SITE, E.GLV_SITE):
+        log(f"drill {site}: {drills[site]['launches']}")
+        failed += [f"drill {site}: {k}"
+                   for k, v in drills[site]["checks"].items() if not v]
+    if not drills["verdicts_equal"]:
+        failed.append("drills: verdicts differ")
     if failed:
         raise AssertionError(f"slice checks failed: {failed}")
-    # every shape the main path launched is held against the plain version
+    # every shape a path launched is held against the plain version; the
+    # launches of an entry are summed over the paths that ran it (both
+    # validation runs, the drills, the decompose surface)
     path_shapes = {name: {} for name in S.LAUNCHES}
-    for name, B, count in sl["launch_shapes"]:
-        path_shapes[name][B] = count
-        if all(r["B"] != B for r in cases[name]):
-            cases[name].append(kernel_case(
-                name, B, seeds[name] + len(cases[name]), clock_hz))
+    path_launches = {name: 0 for name in S.LAUNCHES}
+    path_launches["glv_decompose"] = decomp["launches"]
+    for run in sl["runs"] + [drills[E.GLV_DEV_SITE], drills[E.GLV_SITE]]:
+        for name, n in run["launches"].items():
+            path_launches[name] += n
+        for name, B, count in run["launch_shapes"]:
+            path_shapes[name][B] = path_shapes[name].get(B, 0) + count
+    for name, shapes in path_shapes.items():
+        for B in shapes:
+            if name in cases and all(r["B"] != B for r in cases[name]):
+                cases[name].append(case_fn[name](
+                    name, B, seeds[name] + len(cases[name]), clock_hz))
     for name, rows in cases.items():
         rows.sort(key=lambda r: r["B"])
         for r in rows:
@@ -1283,6 +1662,9 @@ def main() -> int:
         "sweep_h7": "bitcoincashplus_tpu/ops/sha256_sweep.py:330",
         "sweep_h7_pallas": "bitcoincashplus_tpu/ops/pallas_sweep.py:100",
         "sweep_exact": "bitcoincashplus_tpu/ops/miner.py:69",
+        "glv_dev_verify": "bitcoincashplus_tpu/ops/secp256k1.py:1559",
+        "glv_verify": "bitcoincashplus_tpu/ops/secp256k1.py:1296",
+        "glv_decompose": "bitcoincashplus_tpu/ops/secp256k1.py:1539",
     }
     kernels = []
     for name, rows in cases.items():
@@ -1291,9 +1673,11 @@ def main() -> int:
         row = next(r for r in rows if r["B"] == top)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "bitcoincashplus_tpu_torch/csrc/w4_verify.cu",
+            "source": "bitcoincashplus_tpu_torch/csrc/"
+                      + ("glv" if name.startswith("glv") else "w4")
+                      + "_verify.cu",
             "replaces": replaces[name],
-            "launches": sl["launches"][name],
+            "launches": path_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1304,6 +1688,14 @@ def main() -> int:
                                              "shape", "times")},
                         "launches": counts.get(r["B"], 0)} for r in rows],
         })
+    kernels.append({
+        "name": "glv_decompose", "route": "cuda",
+        "source": "bitcoincashplus_tpu_torch/csrc/glv_verify.cu",
+        "replaces": replaces["glv_decompose"],
+        "launches": path_launches["glv_decompose"],
+        **{k: decomp[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "B")},
+        "library_ms": None})
     # each sweep entry at a compared launch shape of the main path:
     # sweep_h7 at the resident segment (its most launched), pallas at its
     # grid, sweep_exact at the exact engine's whole-space launch
@@ -1328,9 +1720,14 @@ def main() -> int:
                                           "plain_ms", "bound_ms", "ghs")}
                        for r in shapes_rows],
         })
-    log(f"validation: {sl['sigs']} sigs in {sl['wall_s']:.2f} s on the "
-        f"device path = {sl['sigs_per_s']:.0f} sigs/s (pipeline depth "
-        f"{PIPELINE_DEPTH}); total {time.monotonic() - t_all:.0f} s")
+    for kern in sorted(set(PATH_ORDER)):
+        walls = [run["wall_s"] for run in sl["runs"]
+                 if run["kernel"] == kern]
+        log(f"validation ({kern}): {sl['runs'][0]['sigs']} sigs, walls in "
+            f"run order {[round(w, 4) for w in walls]} s, median "
+            f"{statistics.median(walls):.4f} s on the device path "
+            f"(pipeline depth {PIPELINE_DEPTH})")
+    log(f"total {time.monotonic() - t_all:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

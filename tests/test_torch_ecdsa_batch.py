@@ -3,7 +3,9 @@ ecdsa_batch.py) on the CPU device — the plain PyTorch w4 verify stands in
 for the CUDA kernel — against the JAX package's verify_batch(backend=
 "cpu"): dispatch_batch (plane entry), dispatch_packed (byte entry),
 LanePacker, the known-answer lanes, the degen re-check, the supervision
-that must not degrade a missing kernel, and the device selection rules."""
+that must not degrade a missing kernel, and the device selection rules.
+Each test runs the w4 rung (-ecdsakernel=w4); the GLV rungs, the default,
+are tests/test_torch_glv.py."""
 
 import random
 
@@ -64,7 +66,7 @@ def cpu_device(monkeypatch):
     faults.INJECTOR.reload()
     tdispatch.reset()
     E.STATS.__init__()
-    monkeypatch.setattr(E, "_KERNEL", None)
+    monkeypatch.setattr(E, "_KERNEL", "w4")
     monkeypatch.setattr(cuda_build, "_DEVICE", None)
     E.set_device("cpu")
     yield
@@ -151,19 +153,22 @@ def test_lane_packer_futures_match_per_block_verdicts():
     assert snap["dispatches"] == 2 and E.STATS.cpu_fallback_sigs == 0
 
 
-def test_only_w4_exists_and_later_kernels_raise():
-    assert E.ECDSA_KERNELS == ("w4",)
-    assert E.active_kernel() == "w4"
-    with pytest.raises(ValueError, match="next slice"):
-        E.set_kernel("glv")
+def test_only_w4_exists_and_later_kernels_raise(monkeypatch):
+    # w4 and GLV (the default, as in the reference) exist; the Schnorr
+    # MSM is a later slice
+    monkeypatch.setattr(E, "_KERNEL", None)
+    assert E.ECDSA_KERNELS == ("glv", "w4")
+    assert E.active_kernel() == "glv"
     with pytest.raises(ValueError, match="later slice"):
         E.set_kernel("msm")
     with pytest.raises(ValueError, match="unknown"):
         E.set_kernel("xla")
+    assert E.active_kernel() == "glv"  # rejected = unchanged
     assert E.set_kernel("w4") == "w4"
+    assert E.active_kernel() == "w4"
     with pytest.raises(ValueError):
         E.dispatch_batch(make_records(5, 9)[0], backend="device",
-                         kernel="glv")
+                         kernel="msm")
 
 
 def test_cuda_without_a_card_raises_and_is_never_degraded():

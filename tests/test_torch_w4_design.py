@@ -1,5 +1,6 @@
 """A CPU model of the w4 ECDSA kernel's design (csrc/w4_verify.cu of
-bitcoincashplus_tpu_torch): its field core word by word, and its team
+bitcoincashplus_tpu_torch, with its field core and point formulas in
+csrc/secp256k1_core.cuh): its field core word by word, and its team
 schedule — which team thread computes which field product at which step.
 
 - ``Ptx`` is the PTX carry-chain instructions the kernel's field core is
@@ -10,7 +11,7 @@ schedule — which team thread computes which field product at which step.
   the model asserts it. Held against Python ints on the edge operands
   (chip_smoke.FIELD_EDGES, which the card's w4_field_selftest runs too)
   and on random operands in the lazy range [0, 2^256).
-- The point formulas are read from the .cu source (pt_double,
+- The point formulas are read from the header's source (pt_double,
   pt_add_mixed, pt_add_full: their levels of independent products and
   the linear steps between them) and run by ``run_formula`` for a team of
   T = 1, 2 or 4 threads, each with its own registers: a level runs in
@@ -40,7 +41,9 @@ from bitcoincashplus_tpu_torch.ops import secp256k1 as T
 P, N = oracle.P, oracle.N
 M32 = (1 << 32) - 1
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CU = os.path.join(REPO, "bitcoincashplus_tpu_torch", "csrc", "w4_verify.cu")
+# the field core and the point formulas (shared by the w4 and GLV kernels)
+CORE = os.path.join(REPO, "bitcoincashplus_tpu_torch", "csrc",
+                    "secp256k1_core.cuh")
 
 
 def _chip_smoke():
@@ -57,7 +60,7 @@ CS = _chip_smoke()
 # ---- the field core, word by word -------------------------------------------
 
 class Ptx:
-    """The PTX instructions of csrc/w4_verify.cu's carry-chain primitives
+    """The PTX instructions of csrc/secp256k1_core.cuh's carry-chain primitives
     (add_cc .. madc_hi): 32-bit results, the carry flag ``cf``. An
     instruction without .cc leaves ``cf`` and records the carry it drops
     in ``dropped``."""
@@ -414,10 +417,10 @@ def test_square_is_bitwise_the_multiply_of_a_by_itself():
 # ---- the team schedule ---------------------------------------------------------
 
 def cu_formula(name: str) -> list:
-    """The steps of one point formula in csrc/w4_verify.cu: ("level",
+    """The steps of one point formula in csrc/secp256k1_core.cuh: ("level",
     [(out, a, b or None), ...]), ("add" | "sub", r, a, b), ("copy", r, a),
     ("iszero", flag, a). Any other statement in the body fails."""
-    src = open(CU).read()
+    src = open(CORE).read()
     start = src.index(f" {name}(const Team<T>& tm")
     body = src[src.index("{", start) + 1:src.index("\n}\n", start)]
     body = re.sub(r"//[^\n]*", "", body)
@@ -766,7 +769,7 @@ def test_word_model_runs_the_collision_lane_windows():
 
 
 def test_launch_table_gives_every_bucket_a_shape_the_kernel_takes():
-    """ops/secp256k1.W4_LAUNCH against the C entries' rules: a team of 1,
+    """ops/secp256k1.ECDSA_LAUNCH against the C entries' rules: a team of 1,
     2 or 4, a block a multiple of 32 up to 128, and the block's shared
     memory (the G table, then 15 x 96 B a lane) within a block's 227 KB."""
     buckets = {teb._bucket_for(n, pallas=p)
