@@ -397,12 +397,13 @@ __device__ __forceinline__ void level(const Team<T>& tm, const Prod (&p)[N]) {
 
 // ---- points (Jacobian; infinity is a separate flag) -------------------------
 // Each formula is a sequence of levels of independent products; the linear
-// steps between them run in every team thread.
+// steps between them run in every team thread. The team type (Team<T>, or
+// secp256k1_pair.cuh's PairTeam<L>) picks the level that runs them.
 
 // dbl-2009-l, a = 0: the JAX pt_double. Doubling a finite point never
 // reaches infinity on secp256k1 (no 2-torsion). Model: pt_double.
-template <int T>
-__device__ __forceinline__ void pt_double(const Team<T>& tm, u32 X[8], u32 Y[8], u32 Z[8]) {
+template <class TM>
+__device__ __forceinline__ void pt_double(const TM& tm, u32 X[8], u32 Y[8], u32 Z[8]) {
     u32 A[8], B[8], YZ[8], C[8], D[8], E[8], F[8], t[8], X3[8], W[8];
     level(tm, {Prod{A, X, nullptr}, Prod{B, Y, nullptr}, Prod{YZ, Y, Z}});
     fe_add(t, X, B);
@@ -427,8 +428,8 @@ __device__ __forceinline__ void pt_double(const Team<T>& tm, u32 X[8], u32 Y[8],
 // Cheap mixed add (X, Y, Z) += (qx, qy), both finite, without the
 // same/opposite case analysis. Returns the H == 0 flag (the caller's
 // degen signal). Model: pt_add_mixed.
-template <int T>
-__device__ __forceinline__ bool pt_add_mixed(const Team<T>& tm, u32 X[8], u32 Y[8], u32 Z[8],
+template <class TM>
+__device__ __forceinline__ bool pt_add_mixed(const TM& tm, u32 X[8], u32 Y[8], u32 Z[8],
                                              const u32 qx[8], const u32 qy[8]) {
     u32 Z1Z1[8], U2[8], ZZ1[8], S2[8], H[8], R[8], HH[8], Z3[8], HHH[8], V[8], RR[8],
         t[8], X3[8], W[8], YH[8];
@@ -452,8 +453,8 @@ __device__ __forceinline__ bool pt_add_mixed(const Team<T>& tm, u32 X[8], u32 Y[
 
 // Cheap full Jacobian add (X, Y, Z) += (X2, Y2, Z2), both finite; same
 // contract as above. Model: pt_add_full.
-template <int T>
-__device__ __forceinline__ bool pt_add_full(const Team<T>& tm, u32 X[8], u32 Y[8], u32 Z[8],
+template <class TM>
+__device__ __forceinline__ bool pt_add_full(const TM& tm, u32 X[8], u32 Y[8], u32 Z[8],
                                             const u32 X2[8], const u32 Y2[8], const u32 Z2[8]) {
     u32 Z1Z1[8], Z2Z2[8], U1[8], U2[8], ZZ1[8], ZZ2[8], S1[8], S2[8], H[8], R[8], HH[8],
         HHH[8], V[8], Z12[8], RR[8], t[8], X3[8], W[8], SH[8], Z3[8];

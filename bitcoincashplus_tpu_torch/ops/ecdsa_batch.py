@@ -222,6 +222,58 @@ def set_kernel(name: str) -> str:
     return name
 
 
+def glv_enabled() -> bool:
+    """Gate of the GLV legs, as the reference's host modules read it. The
+    port never latches a rung off (an injected fault steps down one
+    dispatch; any other failure raises), so it is always True."""
+    return True
+
+
+def glv_dev_enabled() -> bool:
+    """Gate of the device-split GLV leg (the first rung); always True, as
+    glv_enabled."""
+    return True
+
+
+def kernel_info() -> dict:
+    """The info RPC's ``ecdsa`` section, with the reference's keys: the
+    active kernel, GLV health (never latched here), the comb's one-time
+    build cost, the pack-stage split and the MSM counters (the MSM
+    kernel is a later slice: Schnorr lanes go to the per-lane oracle, so
+    its dispatch counters stay 0)."""
+    from . import secp256k1 as dev_mod
+
+    return {
+        "kernel": active_kernel(),
+        "kernels": list(ECDSA_KERNELS),
+        "glv_broken": False,
+        "glv_dispatches": STATS.glv_dispatches,
+        "glv_fallbacks": STATS.glv_fallbacks,
+        "table_build_s": round(dev_mod.GLV_TABLE_BUILD_S, 4),
+        "decompose_s": round(STATS.glv_decompose_s, 4),
+        "pack_s": round(STATS.glv_pack_s, 4),
+        "emit_s": round(STATS.glv_emit_s, 4),
+        "dispatch_s": round(STATS.glv_dispatch_s, 4),
+        "dev_decompose": {
+            "enabled": glv_dev_enabled(),
+            "broken": False,
+            "dispatches": STATS.glv_dev_dispatches,
+            "fallbacks": STATS.glv_dev_fallbacks,
+        },
+        "msm": {
+            "schnorr_sigs": STATS.schnorr_sigs,
+            "schnorr_cpu_sigs": STATS.schnorr_cpu_sigs,
+            "dispatches": 0,
+            "batches_accepted": 0,
+            "batches_rejected": 0,
+            "bisects": 0,
+            "bisect_depth_max": 0,
+            "fallback_sigs": 0,
+            "canary_failures": 0,
+        },
+    }
+
+
 @dataclass
 class BatchStats:
     """Per-dispatch metrics surfaced via the info RPC."""

@@ -20,7 +20,12 @@ layers:
   multiply-adds (about 437,000 32-bit IMADs a w4 verify, 298,000 a GLV
   one; see the source notes): a field core of PTX carry chains, the
   per-lane tables in shared memory, and a team of T threads per lane, T
-  and the block size picked per bucket by ``ECDSA_LAUNCH``.
+  and the block size picked per bucket by ``ECDSA_LAUNCH``. GLV has a
+  second design beside that one, ``csrc/glv_pair.cu`` on
+  ``csrc/secp256k1_pair.cuh`` (a team of pairs of threads; each multiply
+  spread over a pair, half its rows each), with the same lane
+  (``csrc/glv_lane.cuh``); ``GLV_LAUNCH`` picks the design, team and
+  block per bucket.
 - **The plain versions**: the same verifies in PyTorch tensor ops, used
   for tensors on the CPU (the tests) and as the yardstick the kernels are
   held against on the card. They carry field elements as (..., 16) int64
@@ -451,20 +456,37 @@ def bits_to_windows_np(scalar_bytes: np.ndarray, bucket: int) -> np.ndarray:
 
 _ENTRY_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
-# The launch shape per bucket of the w4 and GLV verify entries: (most
-# lanes, team size T, threads a block); the first row whose lane count
-# covers B applies. T threads of a team verify one lane (1, 2 or 4; see
-# the .cu files). Chosen from chip_smoke.py's timing of every compared
-# shape at each T and block size on the H100 (PERF.md, K4-K7): the
-# fastest T whose results were equal on every compare, the same for both
-# kernels.
+# The launch shape per bucket of the w4 verify entries: (most lanes, team
+# size T, threads a block); the first row whose lane count covers B
+# applies. T threads of a team verify one lane (1, 2 or 4; see
+# csrc/w4_verify.cu). Chosen from chip_smoke.py's timing of every
+# compared shape at each T and block size on the H100 (PERF.md, K4, K5).
 ECDSA_LAUNCH = ((2048, 4, 128), (8192, 2, 64), (None, 1, 128))
 
+# The GLV verify launches' team codes: 1, 2 or 4 is the carry-chain
+# design's team of T threads a lane (csrc/glv_verify.cu's entries),
+# GLV_PAIR + L (L = 1 or 4) the pair design's team of L pairs, 2L threads
+# a lane (csrc/glv_pair.cu's entries, named with _pair).
+GLV_PAIR = 16
+GLV_TEAMS = (1, 2, 4, GLV_PAIR + 1, GLV_PAIR + 4)
+# The launch shape per bucket of glv_dev_verify and glv_verify, as
+# ECDSA_LAUNCH: (most lanes, team code, threads a block). Chosen from
+# chip_smoke.py's timing of both entries at every compared shape, team
+# code and block size on the H100 (PERF.md, K6, K7): the fastest whose
+# results were equal to the plain version's on every compare.
+GLV_LAUNCH = ((2048, GLV_PAIR + 4, 128), (8192, GLV_PAIR + 1, 64),
+              (None, 1, 128))
 
-def launch_shape(B: int) -> tuple:
-    """(team size, threads a block) of a verify launch of B lanes."""
-    return next((team, block) for most, team, block in ECDSA_LAUNCH
+
+def launch_shape(B: int, table: tuple = ECDSA_LAUNCH) -> tuple:
+    """(team, threads a block) of a verify launch of B lanes."""
+    return next((team, block) for most, team, block in table
                 if most is None or B <= most)
+
+
+def team_threads(team: int) -> int:
+    """Threads a lane of a GLV team code."""
+    return 2 * (team - GLV_PAIR) if team > GLV_PAIR else team
 
 
 def _launch(name: str, inputs: list, B: int, team: int | None = None,
@@ -594,10 +616,11 @@ def w4_verify_planes_plain(u1w, u2w, qx, qy, q_inf, r0, rn, wrap_ok):
 # - the host part: the constants, the Python-int split (the oracle), the
 #   numpy batch split and sign fold the host-decompose pack uses, and the
 #   comb, built once per process;
-# - the kernels (csrc/glv_verify.cu): glv_dev_verify (K6, the reference's
-#   _glv_dev_program: the split on the card, then the verify), glv_verify
-#   (K7, _glv_program: the verify from the host split) and glv_decompose
-#   (K7's decompose-only surface, _glv_decompose_program);
+# - the kernels (csrc/glv_verify.cu and, the pair design, csrc/glv_pair.cu):
+#   glv_dev_verify (K6, the reference's _glv_dev_program: the split on the
+#   card, then the verify), glv_verify (K7, _glv_program: the verify from
+#   the host split) and glv_decompose (K7's decompose-only surface,
+#   _glv_decompose_program);
 # - the plain PyTorch versions, on the w4 plain core above.
 
 LAMBDA = 0x5363AD4CC05C30E0A5261C028812645A122E22EA20816678DF02967C1B23BD72
@@ -1116,18 +1139,21 @@ GLV_SPLIT = 16384
 def _glv_launch(name: str, inputs: list, B: int, team: int | None = None,
                 block: int | None = None) -> torch.Tensor:
     """Launch one GLV verify entry on the current stream: contiguous CUDA
-    inputs, then the comb; returns the (2, B) uint8 (ok, degen) rows."""
+    inputs, then the comb; returns the (2, B) uint8 (ok, degen) rows. team
+    (a GLV_TEAMS code) and block default to GLV_LAUNCH's."""
     if team is None:
-        team, block = launch_shape(B)
-    fn = cuda_build.entry(name, [ctypes.c_void_p] * (len(inputs) + 3)
+        team, block = launch_shape(B, GLV_LAUNCH)
+    entry, code = (name + "_pair", team - GLV_PAIR) if team > GLV_PAIR \
+        else (name, team)
+    fn = cuda_build.entry(entry, [ctypes.c_void_p] * (len(inputs) + 3)
                           + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     dev = inputs[0].device
     out = torch.empty(2, B, dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(*[t.data_ptr() for t in inputs],
             _comb_on(dev, "words").data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), B, team, block, stream)
-    cuda_build.check_launch(name, rc)
+            out[1].data_ptr(), B, code, block, stream)
+    cuda_build.check_launch(entry, rc)
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[(name, B)] = LAUNCH_SHAPES.get((name, B), 0) + 1
     return out

@@ -7,18 +7,23 @@ NVIDIA card.
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build   — compile each csrc/*.cu (w4_verify.cu, glv_verify.cu,
-             sha256d_sweep.cu; the ECDSA pair share csrc/secp256k1_core.cuh)
+             glv_pair.cu, sha256d_sweep.cu; the ECDSA kernels share
+             csrc/secp256k1_core.cuh, the GLV pair csrc/glv_lane.cuh)
              by its own nvcc (sm_90a), all started together, from this
              checkout; print the build seconds, ptxas' registers, stack
              frame and spills per kernel, the w4 kernels' SASS local
              loads and stores (LDL / STL: the phase fails on any, or on a
-             stack frame or spill), the GLV kernels' (reported, not gated),
-             and the sweep kernels' SASS instruction counts (cuobjdump)
-             beside the counts taken from their rounds.
+             stack frame or spill), the GLV kernels' (the pair design's
+             instances gated the same way, the carry-chain ones
+             reported), and the sweep kernels' SASS instruction counts
+             (cuobjdump) beside the counts taken from their rounds.
 2. ecdsa   — the w4 field core alone (entry w4_field_selftest: fe_mul,
              fe_sqr, fe_add, fe_sub, fe_canon, the zero test and fe_eq on
              FIELD_EDGES x FIELD_EDGES and 4096 seeded random pairs)
-             against Python ints, error 0. Then each ECDSA entry at
+             against Python ints, error 0; the GLV designs' products the
+             same way (entry glv_field_chain: fe_mul, fe_sqr, the pair's
+             split fe_mul_pair, fe_add), then timed as dependent chains at
+             1 and 4 warps a scheduler. Then each ECDSA entry at
              B = 32, 128, 1024, 2048, 8192 and 16384 (the validation
              path's shapes among them) on seeded valid and invalid
              signatures, wrap lanes, q_inf lanes and crafted degenerate
@@ -32,7 +37,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              (glv_dev_verify on the w4 byte matrices, glv_verify on the
              host split) at B = 1024, 2048, 8192 and 16384, with
              GLV-degenerate lanes (glv_records) and the IMAD bound of
-             glv_imad_count; the same table.
+             glv_imad_count, at every team code of both designs
+             (ops/secp256k1.GLV_TEAMS) and block size: GLV_LAUNCH's launch
+             beside the fastest measured, beside the carry-chain design at
+             w4's table (ECDSA_LAUNCH) timed in the same call, and the
+             warps a scheduler of the launch.
 2b. split  — the GLV split alone (glv_decompose_device_batch, entry
              glv_decompose) through its wrapper on GLV_EDGES and 4096
              seeded scalars (counts zeroed just before, read just after):
@@ -138,6 +147,8 @@ FIELD_EDGES = [0, 1, 2, 977, 2**32 + 977, 2**32 - 1, _P - 1, _P, _P + 1,
                (2**32 - 1) << 224, int("ffffffff00000000" * 4, 16),
                int("00000000ffffffff" * 4, 16)]
 FIELD_RANDOM_PAIRS = 4096
+# dependent steps of each timed field chain (field_chains)
+CHAIN_STEPS = 2000
 # The GLV entries at the validation path's byte buckets (1024 the GLV
 # floor, 2048 the LanePacker's, 8192 dispatch_packed's) and the split size
 GLV_SHAPES = (1024, 2048, 8192, 16384)
@@ -542,18 +553,20 @@ def glv_case(entry: str, B: int, seed: int, clock_hz: float,
                     f"{entry} B={B} {what}")
 
     times, errs = {}, []
+    chain = S.launch_shape(B)  # the carry-chain design at w4's table
     if dev.type == "cuda":
-        for team in W4_TEAMS:
+        for team in S.GLV_TEAMS:
             for block in W4_BLOCKS:
                 def launch(team=team, block=block):
                     out = S._glv_launch(entry, tens, B, team, block)
                     return out[0].view(torch.bool), out[1].view(torch.bool)
 
-                err, n_degen = check(*launch(), f"T={team} block={block}")
+                err, n_degen = check(*launch(),
+                                     f"{team_name(team)} block={block}")
                 errs.append(err)
                 times[team, block] = time_cuda(launch,
                                                20 if B <= 8192 else 10)
-        shape = S.launch_shape(B)
+        shape = S.launch_shape(B, S.GLV_LAUNCH)
         err, n_degen = check(*wrapper(*tens), "wrapper")
         errs.append(err)
         ms = times[shape]
@@ -588,7 +601,29 @@ def glv_case(entry: str, B: int, seed: int, clock_hz: float,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "imads": imads, "max_abs_err": max(errs), "degen_lanes": n_degen,
             "sigs_per_s": B / (ms / 1e3), "shape": shape,
+            "chain_shape": chain, "chain_ms": times.get(chain),
+            "warps_per_scheduler": warps_per_scheduler(B, shape),
             "times": {f"{t}x{b}": v for (t, b), v in times.items()}}
+
+
+def team_name(team: int) -> str:
+    """A GLV team code as the log writes it: T=n for the carry-chain
+    design, pairs L=n for the pair design (2n threads a lane)."""
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    if team > S.GLV_PAIR:
+        return f"pairs L={team - S.GLV_PAIR}"
+    return f"T={team}"
+
+
+def warps_per_scheduler(B: int, shape) -> float | None:
+    """Resident warps a warp scheduler (4 an SM) of a GLV launch of B
+    lanes at (team code, block): lanes x threads a lane over 32."""
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    if shape is None:
+        return None
+    return B * S.team_threads(shape[0]) / 32 / (4 * SMS)
 
 
 def glv_decompose_phase(clock_hz: float, seed: int = 11,
@@ -700,6 +735,71 @@ def field_selftest(seed: int = 7) -> dict:
                              f"first {bad[:5]}")
     return {"pairs": len(pairs), "edge_pairs": len(FIELD_EDGES) ** 2,
             "random_pairs": FIELD_RANDOM_PAIRS, "errors": 0}
+
+
+def field_chains(clock_hz: float, seed: int = 9) -> dict:
+    """The products the GLV designs are built from (entry glv_field_chain):
+    fe_mul, fe_sqr, fe_mul_pair (a multiply split over two threads) and
+    fe_add, first one step each on FIELD_EDGES x FIELD_EDGES and
+    FIELD_RANDOM_PAIRS // 8 seeded pairs against Python ints (the pair's
+    two threads both equal to fe_mul's words), then chains of
+    CHAIN_STEPS dependent steps at 1 and 4 warps a scheduler (132 blocks
+    of 128 and 512 threads): cycles a step a warp at the card's maximum
+    SM clock."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import cuda_build
+
+    rng = random.Random(seed)
+    pairs = [(x, y) for x in FIELD_EDGES for y in FIELD_EDGES]
+    pairs += [(rng.getrandbits(256), rng.getrandbits(256))
+              for _ in range(FIELD_RANDOM_PAIRS // 8)]
+
+    def to_words(vals):
+        return [(v >> (32 * i)) & 0xFFFFFFFF for v in vals for i in range(8)]
+
+    words = np.array([to_words(p) for p in pairs], np.uint64).astype(
+        np.uint32).view(np.int32)
+    inp = torch.tensor(words, device="cuda")
+    fn = cuda_build.entry("glv_field_chain", [ctypes.c_int] + [
+        ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(op, blocks, threads, iters):
+        out = torch.empty(blocks * threads * 8, dtype=torch.int32,
+                          device="cuda")
+        rc = fn(op, inp.data_ptr(), out.data_ptr(), len(pairs), blocks,
+                threads, iters, stream)
+        cuda_build.check_launch("glv_field_chain", rc)
+        return out
+
+    n = 2 * len(pairs)
+    blocks = (n + 127) // 128
+    res = {op: run(op, blocks, 128, 1).cpu().numpy().view(
+        np.uint32).reshape(-1, 8)[:n].astype(object) for op in range(4)}
+    bad = []
+    for i, (x, y) in enumerate(pairs):
+        want = (x * y, x * x, x * y, x + y)
+        for op in range(4):
+            for t in (2 * i, 2 * i + 1):
+                got = sum(int(w) << (32 * k) for k, w in enumerate(res[op][t]))
+                if got >= 1 << 256 or (got - want[op]) % _P:
+                    bad.append((op, hex(x), hex(y)))
+        if list(res[2][2 * i]) != list(res[0][2 * i]):
+            bad.append(("pair words", hex(x), hex(y)))
+    if bad:
+        raise AssertionError(f"glv_field_chain: {len(bad)} errors, first "
+                             f"{bad[:5]}")
+    cycles = {}
+    for op, name in enumerate(("fe_mul", "fe_sqr", "fe_mul_pair", "fe_add")):
+        for per_scheduler, threads in ((1, 128), (4, 512)):
+            ms = time_cuda(lambda: run(op, SMS, threads, CHAIN_STEPS), 3)
+            cycles[f"{name} {per_scheduler} warp(s)/scheduler"] = \
+                ms * 1e-3 * clock_hz / CHAIN_STEPS
+    return {"pairs": len(pairs), "errors": 0, "cycles_a_step": cycles}
 
 
 def _zero_counts() -> None:
@@ -938,8 +1038,10 @@ def sweep_ops_per_nonce(exact: bool) -> dict:
 W4_KERNELS = ("w4_verify_bytes_kernel", "w4_verify_planes_kernel",
               "w4_field_selftest_kernel")
 SWEEP_KERNELS = ("sweep_h7_kernel", "sweep_exact_kernel")
+GLV_PAIR_KERNELS = ("glv_dev_verify_pair_kernel", "glv_verify_pair_kernel")
 GLV_KERNELS = ("glv_dev_verify_kernel", "glv_verify_kernel",
-               "glv_decompose_kernel")
+               "glv_decompose_kernel", "glv_field_chain_kernel") \
+    + GLV_PAIR_KERNELS
 _ALU_ONLY = ("SHF", "SHL", "SHR", "LOP3", "PRMT", "ISETP")
 _NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
             "ATOM", "RED", "S2R", "NOP", "BSSY", "BSYNC", "WARPSYNC", "LDC",
@@ -1464,7 +1566,8 @@ def main() -> int:
            for r in w4.values()) or any(local.values()):
         raise AssertionError(f"w4 kernels use local memory: ptxas {w4}, "
                              f"SASS LDL/STL {local}")
-    # the GLV kernels: reported, not gated
+    # the GLV kernels: all reported; the pair design's instances gated as
+    # the w4 ones (no stack frame, spill or LDL/STL)
     glv_build = {k: {**ptxas.get(k, {}),
                      "sass_total": sass.get(k, {}).get("total"),
                      "ldl_stl": sass.get(k, {}).get("local")}
@@ -1472,6 +1575,18 @@ def main() -> int:
                  if k.startswith(GLV_KERNELS)}
     for k, v in glv_build.items():
         log(f"GLV build: {k}: {v}")
+    pair = {k: v for k, v in glv_build.items()
+            if k.startswith(GLV_PAIR_KERNELS)}
+    n_pair = 2 * sum(t > S.GLV_PAIR for t in S.GLV_TEAMS)
+    if len(pair) != n_pair or any(v.get("registers") is None
+                                  or v["ldl_stl"] is None for v in
+                                  pair.values()):
+        raise AssertionError(f"pair-design GLV kernels missing from the "
+                             f"build report: {sorted(pair)}")
+    if any(v["stack"] or v["spill_stores"] or v["spill_loads"]
+           or v["ldl_stl"] for v in pair.values()):
+        raise AssertionError(f"pair-design GLV kernels use local memory: "
+                             f"{pair}")
     # the sweep bound: ALU-pipe instructions a nonce, counted from the
     # rounds and checked against the kernels' SASS (the lower count holds)
     ops = {}
@@ -1495,6 +1610,8 @@ def main() -> int:
     # team size and block size
     selftest = field_selftest()
     log(f"w4_field_selftest: {json.dumps(selftest)}")
+    chains = field_chains(clock_hz)
+    log(f"field chains: {json.dumps(chains)}")
     seeds = {"w4_verify_bytes": 100, "w4_verify_planes": 200,
              "glv_dev_verify": 600, "glv_verify": 700}
     case_fn = {name: glv_case if name.startswith("glv") else kernel_case
@@ -1507,20 +1624,31 @@ def main() -> int:
     decomp = glv_decompose_phase(clock_hz)
     log(f"glv_decompose: {json.dumps(decomp)}; every lane equal to the "
         f"Python split and to the plain version")
+    log(f"GLV_LAUNCH (most lanes, team code, block): {S.GLV_LAUNCH}; team "
+        f"codes {S.GLV_TEAMS} ({', '.join(map(team_name, S.GLV_TEAMS))})")
     for name, rows in cases.items():
+        glv = name.startswith("glv")
         for r in rows:
             fastest = min(r["times"], key=r["times"].get)
-            for team in W4_TEAMS:
+            for team in (S.GLV_TEAMS if glv else W4_TEAMS):
                 at = ", ".join(f"block {b} {r['times'][f'{team}x{b}']:.3f} ms"
                                for b in W4_BLOCKS)
-                log(f"{name} B={r['B']} T={team}: {at}; equal to the plain "
+                label = team_name(team) if glv else f"T={team}"
+                log(f"{name} B={r['B']} {label}: {at}; equal to the plain "
                     f"version and the oracle")
-            log(f"{name} B={r['B']}: the table's launch T x block = "
+            log(f"{name} B={r['B']}: the table's launch team x block = "
                 f"{r['shape'][0]}x{r['shape'][1]} at {r['ms']:.3f} ms, "
                 f"fastest measured {fastest} at "
                 f"{r['times'][fastest]:.3f} ms; bound {r['bound_ms']:.4f} ms, "
                 f"plain {r['plain_ms']:.1f} ms, {r['degen_lanes']} degen "
                 f"lane(s), err {r['max_abs_err']}")
+            if glv:
+                c = r["chain_shape"]
+                log(f"{name} B={r['B']}: the table's launch {r['ms']:.3f} ms "
+                    f"against the carry-chain design at w4's T x block = "
+                    f"{c[0]}x{c[1]} {r['chain_ms']:.3f} ms in this call "
+                    f"({r['chain_ms'] / r['ms']:.2f}x); "
+                    f"{r['warps_per_scheduler']:.2f} warps a scheduler")
 
     # 3. the sweep kernels against their plain versions
     sweeps = {name: [sweep_case(name, tile, n, 300 + 10 * i + j, clock_hz,
@@ -1673,9 +1801,10 @@ def main() -> int:
         row = next(r for r in rows if r["B"] == top)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "bitcoincashplus_tpu_torch/csrc/"
-                      + ("glv" if name.startswith("glv") else "w4")
-                      + "_verify.cu",
+            "source": "bitcoincashplus_tpu_torch/csrc/" + (
+                "w4_verify.cu" if not name.startswith("glv") else
+                "glv_pair.cu" if row["shape"][0] > S.GLV_PAIR else
+                "glv_verify.cu"),
             "replaces": replaces[name],
             "launches": path_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -1685,7 +1814,9 @@ def main() -> int:
             "team": row["shape"][0], "block": row["shape"][1],
             "shapes": [{**{k: r[k] for k in ("B", "ms", "plain_ms",
                                              "bound_ms", "sigs_per_s",
-                                             "shape", "times")},
+                                             "shape", "times", "chain_shape",
+                                             "chain_ms", "warps_per_scheduler")
+                           if k in r},
                         "launches": counts.get(r["B"], 0)} for r in rows],
         })
     kernels.append({

@@ -179,7 +179,8 @@ def test_constants_match_the_reference_and_the_kernel():
                  "_GLV_B2", "_GLV_G1_INT", "_GLV_G2_INT", "GLV_WINDOWS",
                  "GLV_COMB_TEETH"):
         assert getattr(T, name) == getattr(J, name), name
-    src = open(os.path.join(cuda_build.CSRC_DIR, "glv_verify.cu")).read()
+    src = "".join(open(os.path.join(cuda_build.CSRC_DIR, f)).read()
+                  for f in ("glv_lane.cuh", "glv_verify.cu", "glv_pair.cu"))
     want = {"c_beta": T.BETA, "c_n": N, "c_half_n": (N + 1) // 2,
             "c_g1": T._GLV_G1_INT, "c_g2": T._GLV_G2_INT, "c_b2": T._GLV_B2,
             "c_minus_b1": T._GLV_MINUS_B1, "c_a1": T._GLV_A1,
@@ -191,7 +192,8 @@ def test_constants_match_the_reference_and_the_kernel():
                  for w in m.group(2).split(",")]
         assert len(words) == int(m.group(1)), name
         assert limbs_int(words, 32) == value, name
-    for entry in ("glv_dev_verify", "glv_verify", "glv_decompose"):
+    for entry in ("glv_dev_verify", "glv_verify", "glv_decompose",
+                  "glv_dev_verify_pair", "glv_verify_pair"):
         assert f'extern "C" int {entry}(' in src
 
 

@@ -213,3 +213,51 @@ def test_every_listed_difference_is_still_needed():
     for (module, name), fn in FUNCTION_DIFFERENCES.items():
         ref = _function_code(os.path.join(REF, module + ".py"), name)
         assert fn(ref) != ref, (module, name)
+
+
+# reference host modules due to be copied byte for byte that read
+# attributes of ops/ecdsa_batch (as ``ecdsa_batch`` or ``_eb``)
+ECDSA_BATCH_READERS = ("serving/sigservice", "rpc/control",
+                       "parallel/sig_shard")
+
+
+def _ecdsa_batch_reads(path: str) -> set:
+    return {node.attr for node in ast.walk(ast.parse(open(path).read(), path))
+            if isinstance(node, ast.Attribute)
+            and isinstance(node.value, ast.Name)
+            and node.value.id in ("ecdsa_batch", "_eb")}
+
+
+@pytest.mark.parametrize("module", ECDSA_BATCH_READERS)
+def test_reference_readers_find_what_they_read_in_the_port(module):
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch
+
+    reads = _ecdsa_batch_reads(os.path.join(REF, module + ".py"))
+    assert reads, module
+    missing = sorted(n for n in reads if not hasattr(ecdsa_batch, n))
+    assert not missing, f"{module} reads {missing} from ops/ecdsa_batch"
+
+
+def _literal_keys(node) -> dict:
+    """The keys of a dict literal, nested dict literals as sub-dicts."""
+    return {k.value: _literal_keys(v) if isinstance(v, ast.Dict) else None
+            for k, v in zip(node.keys, node.values)}
+
+
+def _value_keys(d: dict) -> dict:
+    return {k: _value_keys(v) if isinstance(v, dict) else None
+            for k, v in d.items()}
+
+
+def test_kernel_info_has_the_reference_keys():
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch
+
+    path = os.path.join(REF, "ops", "ecdsa_batch.py")
+    fn = next(node for node in ast.parse(open(path).read(), path).body
+              if isinstance(node, ast.FunctionDef)
+              and node.name == "kernel_info")
+    ret = next(node for node in ast.walk(fn) if isinstance(node, ast.Return))
+    info = ecdsa_batch.kernel_info()
+    assert _value_keys(info) == _literal_keys(ret.value)
+    assert info["dev_decompose"]["enabled"] and ecdsa_batch.glv_enabled()
+    assert not info["glv_broken"] and not info["dev_decompose"]["broken"]

@@ -421,7 +421,7 @@ def cu_formula(name: str) -> list:
     [(out, a, b or None), ...]), ("add" | "sub", r, a, b), ("copy", r, a),
     ("iszero", flag, a). Any other statement in the body fails."""
     src = open(CORE).read()
-    start = src.index(f" {name}(const Team<T>& tm")
+    start = src.index(f" {name}(const TM& tm")
     body = src[src.index("{", start) + 1:src.index("\n}\n", start)]
     body = re.sub(r"//[^\n]*", "", body)
     steps = []
