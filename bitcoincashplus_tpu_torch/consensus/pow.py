@@ -62,6 +62,51 @@ def check_proof_of_work(block_hash: bytes, bits: int, params) -> bool:
     return int.from_bytes(block_hash, "little") <= target
 
 
+def check_headers_pow_batch(headers80: list, params) -> list[bool]:
+    """Batched CheckProofOfWork over serialized 80-byte headers — the
+    headers-first sync pre-filter (p2p/connman._msg_headers): one
+    supervised device dispatch hashes the whole announcement batch
+    (ops/sha256.sha256d_headers rides the sha256 circuit breaker, so a
+    dead backend degrades to per-header host hashing), then each digest is
+    compared to its own header's decoded target on host. Verdicts are
+    bit-identical to per-header check_proof_of_work by construction:
+    target decoding and the <= compare are this module's scalar code."""
+    import numpy as np
+
+    from ..ops.sha256 import sha256d_headers
+
+    if not headers80:
+        return []
+    arr = np.frombuffer(b"".join(headers80), dtype=np.uint8).reshape(-1, 80)
+    n = arr.shape[0]
+    # pad to a pow2 bucket (min 16) so the jit compiles O(log n) distinct
+    # shapes across all announcement sizes, not one per batch length
+    bucket = max(16, 1 << (n - 1).bit_length())
+    if bucket != n:
+        arr = np.concatenate([arr, np.repeat(arr[:1], bucket - n, axis=0)])
+    digests = sha256d_headers(arr)
+    from ..crypto.hashes import sha256d
+
+    out = []
+    for i, raw in enumerate(headers80):
+        bits = int.from_bytes(raw[72:76], "little")
+        target, bad = compact_to_target(bits)
+        ok = (
+            not bad and 0 < target <= params.pow_limit
+            and int.from_bytes(digests[i].tobytes(), "little") <= target
+        )
+        if not ok and not bad and 0 < target <= params.pow_limit:
+            # every FAILING verdict is host-confirmed before it is
+            # returned: the batch's lane-0 spot check can miss a single
+            # corrupted device lane, and callers punish peers on a False
+            # here — a lying device must not be able to stall headers
+            # sync by framing honest announcements (cheap: honest
+            # traffic almost never takes this branch)
+            ok = int.from_bytes(sha256d(raw), "little") <= target
+        out.append(ok)
+    return out
+
+
 def get_block_proof(bits: int) -> int:
     """Chain-work contribution of a block — GetBlockProof
     (src/chain.cpp:~120): floor(2^256 / (target+1))."""

@@ -172,6 +172,14 @@ def entry(name: str, argtypes: list):
     raise KernelUnavailable(f"no kernel library has the entry {name}")
 
 
+def launch(name: str, argtypes: list, dev: torch.device, *args) -> None:
+    """Call the C entry ``name`` (typed by ``argtypes``) with ``args`` and
+    the current stream of ``dev``; raise KernelUnavailable if its launch
+    failed."""
+    fn = entry(name, argtypes)
+    check_launch(name, fn(*args, torch.cuda.current_stream(dev).cuda_stream))
+
+
 def check_launch(name: str, rc: int) -> None:
     """Raise KernelUnavailable when a C entry returned a CUDA error."""
     if rc != 0:

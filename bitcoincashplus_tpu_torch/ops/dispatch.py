@@ -22,10 +22,6 @@ in-call retries, and so does an open breaker with no fault armed: a
 missing or broken kernel must surface, not turn into the scalar nonce
 loop (which needs days at difficulty 1).
 
-What this slice of the port leaves out: ``merkle_root`` computes on the
-host at every leaf count (the device Merkle reduction, K2 in
-ops/merkle.py of the reference, is a later slice).
-
 Env knobs (read at configure time):
     BCP_BREAKER_THRESHOLD  consecutive failures to open (default 3)
     BCP_BREAKER_COOLDOWN   seconds open before probes start (default 5)
@@ -446,23 +442,59 @@ def supervised_enqueue(site: str, enqueue_fn: Callable, cpu_fn: Callable,
 
 
 # ---------------------------------------------------------------------------
-# Subsystem front doors used by validation/
+# Subsystem front doors used by validation/ and mining/ (lazy device import
+# so CPU-only paths and crash-test workers never load the kernel modules).
 # ---------------------------------------------------------------------------
 
+def _merkle_device_min() -> int:
+    """Leaf-count floor for the device Merkle path: below it the dispatch
+    round trip loses to the host loop (and ordinary regtest blocks stay on
+    the byte-exact CPU reference)."""
+    return int(os.environ.get("BCP_TPU_MERKLE_MIN", "512"))
+
+
 def merkle_root(hashes: list, expected: Optional[bytes] = None) -> tuple:
-    """Merkle root and CVE-2012-2459 mutation flag, on the host at every
-    leaf count in this slice of the port (the reference sends 512 leaves
-    or more to its device tree reduction; that leg is a later slice).
-    ``expected`` is the caller's claimed root, kept for the reference's
-    signature."""
+    """Supervised Merkle root: device tree-reduction for large leaf sets,
+    reference CPU loop otherwise (and for an injected fault at the merkle
+    site; any other device failure raises KernelUnavailable).
+
+    ``expected`` is the caller's claimed root (the block header's). A
+    device result is never the sole basis for a VERDICT CHANGE in either
+    direction:
+
+    - reject side: a device root mismatch or mutated=True is confirmed by
+      a full CPU recompute before it is returned — the witness probe
+      catches gross corruption cheaply, but a single corrupted interior
+      lane could otherwise pass it and make a lying device reject a valid
+      block (forking the node off the honest chain);
+    - accept side: a device mutated=False is only trusted when the leaf
+      set has no duplicates. Equal interior nodes require equal leaf
+      subsequences (absent SHA-256 collisions), so distinct leaves imply
+      no CVE-2012-2459 mutation; any duplicate leaf forces the CPU
+      reference to produce the flag.
+
+    A bad device may cost one CPU recompute, never a verdict."""
+    if len(hashes) >= _merkle_device_min():
+        from ..consensus.merkle import compute_merkle_root
+        from .merkle import compute_merkle_root_tpu_ex
+
+        root, mutated, used_device = compute_merkle_root_tpu_ex(hashes)
+        if used_device and (
+            mutated
+            or (expected is not None and root != expected)
+            or len(set(hashes)) != len(hashes)
+        ):
+            return compute_merkle_root(hashes)
+        return root, mutated
     from ..consensus.merkle import compute_merkle_root
 
     return compute_merkle_root(hashes)
 
 
 def block_merkle_root(block) -> tuple:
-    """BlockMerkleRoot through the chooser (chainstate's check_block
-    entry)."""
+    """BlockMerkleRoot through the supervised chooser (chainstate's
+    check_block entry); the header's claimed root gates reject-path
+    CPU confirmation."""
     return merkle_root([tx.txid for tx in block.vtx],
                        expected=block.header.hash_merkle_root)
 

@@ -41,9 +41,9 @@ import torch
 from ..crypto.hashes import SHA256_INIT, SHA256_K, header_midstate, sha256d
 from . import cuda_build
 from .cuda_build import KernelUnavailable, require_device
-from .sha256 import bswap32, bytes_to_words_np, target_to_limbs_np
+from .sha256 import (M32, _S0, _S1, _add, _ch, _maj, _round, _s0, _s1,
+                     bswap32, bytes_to_words_np, target_to_limbs_np)
 
-M32 = 0xFFFFFFFF
 _K = SHA256_K
 _IV = SHA256_INIT
 _PAD = 0x80000000
@@ -75,49 +75,7 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-# ---- the SHA-256 round arithmetic (Python ints or int64 tensors) ------------
-
-def _add(*xs):
-    s = xs[0]
-    for x in xs[1:]:
-        s = s + x
-    return s & M32
-
-
-def _rotr(x, n: int):
-    return ((x >> n) | (x << (32 - n))) & M32
-
-
-def _S0(x):
-    return _rotr(x, 2) ^ _rotr(x, 13) ^ _rotr(x, 22)
-
-
-def _S1(x):
-    return _rotr(x, 6) ^ _rotr(x, 11) ^ _rotr(x, 25)
-
-
-def _s0(x):
-    return _rotr(x, 7) ^ _rotr(x, 18) ^ (x >> 3)
-
-
-def _s1(x):
-    return _rotr(x, 17) ^ _rotr(x, 19) ^ (x >> 10)
-
-
-def _ch(e, f, g):
-    return g ^ (e & (f ^ g))
-
-
-def _maj(a, b, c):
-    return ((b ^ c) & a) ^ (b & c)
-
-
-def _round(state, k, w):
-    a, b, c, d, e, f, g, h = state
-    t1 = _add(h, _S1(e), _ch(e, f, g), k, w)
-    t2 = _add(_S0(a), _maj(a, b, c))
-    return (_add(t1, t2), a, b, c, _add(d, t1), e, f, g)
-
+# ---- rounds with pre-folded constants (the rest is ops/sha256.py's) -------
 
 def _round_kw(state, kw, vecw=None):
     """One round with the round constant pre-folded: ``kw`` is K[i] + the

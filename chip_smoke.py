@@ -7,16 +7,18 @@ NVIDIA card.
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build   — compile each csrc/*.cu (w4_verify.cu, glv_verify.cu,
-             glv_pair.cu, sha256d_sweep.cu; the ECDSA kernels share
-             csrc/secp256k1_core.cuh, the GLV pair csrc/glv_lane.cuh)
-             by its own nvcc (sm_90a), all started together, from this
+             glv_pair.cu, sha256d_sweep.cu, sha256d_batch.cu; the ECDSA
+             kernels share csrc/secp256k1_core.cuh, the GLV pair
+             csrc/glv_lane.cuh) by its own nvcc (sm_90a), all started
+             together, from this
              checkout; print the build seconds, ptxas' registers, stack
              frame and spills per kernel, the w4 kernels' SASS local
              loads and stores (LDL / STL: the phase fails on any, or on a
              stack frame or spill), the GLV kernels' (the pair design's
              instances gated the same way, the carry-chain ones
-             reported), and the sweep kernels' SASS instruction counts
-             (cuobjdump) beside the counts taken from their rounds.
+             reported), the sweep kernels' SASS instruction counts
+             (cuobjdump) beside the counts taken from their rounds, and
+             the batch kernels' (gated: no local memory).
 2. ecdsa   — the w4 field core alone (entry w4_field_selftest: fe_mul,
              fe_sqr, fe_add, fe_sub, fe_canon, the zero test and fe_eq on
              FIELD_EDGES x FIELD_EDGES and 4096 seeded random pairs)
@@ -59,6 +61,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              2^20 x 4096 from nonce 0), against the plain version with its
              first candidate between 2^26 and 2^28, both timed on it; and
              that launch timed with no hit (no plain time: minutes).
+3b. batch  — the batch SHA-256d kernels of csrc/sha256d_batch.cu: one
+             dependent sha256d_64's latency (entry sha256d_chain, equal to
+             hashlib's chain); sha256d_headers and check_headers_pow at
+             B = 16, 17, 2048 and 16384 (lane 0 the mainnet genesis
+             header; targets at and just below a digest, and difficulty
+             1); merkle_tree at buckets 128 to 2^16 with m the bucket, odd,
+             bucket / 2 + 1, a duplicated tail (mutated), equal pairs past
+             m (not mutated) and 2; sha256d_pairs at 128, 512, 1000 and
+             2^16 rows — each exactly equal to its plain version on the
+             card and to the host oracles (hashlib, the compare,
+             compute_merkle_root, merkle_root_naive); kernel and plain
+             times, bound and chain floor.
 4. genesis — a known answer: the mainnet genesis header at target
              0x1d00ffff, a 2^28-nonce window ending at its nonce, swept by
              each entry's host loop: the same nonce, host-verified.
@@ -84,6 +98,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              the same verdicts. Any shape a path launched that phase 2
              did not cover is then held against the plain version the
              same way.
+5b. big blocks — the validation path with the device Merkle leg: a
+             regtest chain of one-input transactions
+             (workload/sigchain.generate, 13,286 sigs, 4,095 a block:
+             three blocks of 4,096 leaves, one of 1,002) through a
+             ChainstateManager under the default GLV kernel, counts zeroed
+             just before and read just after: merkle_tree once for each
+             block of 512 leaves or more, the host compute_merkle_root for
+             none of them, no merkle or sha256 fallback, the coin digest
+             and best block equal to the CPU engine's; the Merkle leg's
+             time beside the host's per block. Then a crafted block with a
+             duplicated tail (bad-txns-duplicate) and one with an altered
+             header root (bad-txnmrklroot), each with one host
+             confirmation.
 6. mining  — the mining main path at difficulty 1 (testnet, nBits
              0x1d00ffff: 2^32 hashes a block on average): generate_blocks
              on an on-disk testnet ChainstateManager with the exact engine
@@ -93,7 +120,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              launched (counts zeroed just before each engine, read just
              after). Per engine: blocks, hashes swept, wall s, GH/s end to
              end, and the kernel's share of the wall.
-7. report  — a JSON line of the eight kernel entries with launches on
+6b. headers — a 2,000-header regtest chain through
+             consensus/pow.check_headers_pow_batch: verdicts equal to
+             per-header check_proof_of_work, one sha256d_headers launch at
+             B = 2048; again with a header at nBits 0x1d00ffff whose nonce
+             misses (False, one host confirmation) and phase 6's testnet
+             headers; store/certificate.mmr_root over the chain's hashes
+             equal to a hashlib MMR, one sha256d_pairs launch for each
+             level of 128 pairs or more.
+6c. gate   — the host compute_merkle_root beside the device leg end to
+             end (ops/dispatch.merkle_root) at 128, 512, 1024 and 4096
+             leaves.
+7. report  — a JSON line of the twelve kernel entries with launches on
              their paths, errors, times and bounds; the card's name and
              power limit; last, {"ok": true, "device": {...}}.
 
@@ -410,6 +448,48 @@ def time_once(fn, dev) -> tuple:
     out = fn()
     sync()
     return (time.perf_counter() - t0) * 1e3, out
+
+
+def time_device(fn, clock_hz: float, reps: int = 50) -> float:
+    """Mean device ms of one call of ``fn`` for a kernel shorter than the
+    host's per-call overhead: the calls are enqueued behind a spin kernel
+    (torch.cuda._sleep) that outlasts their enqueue, so the events around
+    them time the card's back-to-back work, not the host's calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    per_call = time.perf_counter() - t0
+    spin_s = 4 * per_call * reps + 1e-3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * clock_hz))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    if enqueue_s > spin_s / 2:
+        raise AssertionError(f"time_device: the enqueue ({enqueue_s:.6f} s) "
+                             f"was not hidden behind the spin ({spin_s} s)")
+    return start.elapsed_time(end) / reps
+
+
+def entry_call(name: str, argtypes: list, *args):
+    """A zero-argument call of the C entry ``name`` with ``args`` on the
+    current stream (no wrapper: no allocation, no launch count), its
+    return code checked."""
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import cuda_build
+
+    dev = torch.device("cuda")
+    return lambda: cuda_build.launch(name, argtypes, dev, *args)
 
 
 def host_oracle(recs):
@@ -1042,6 +1122,8 @@ GLV_PAIR_KERNELS = ("glv_dev_verify_pair_kernel", "glv_verify_pair_kernel")
 GLV_KERNELS = ("glv_dev_verify_kernel", "glv_verify_kernel",
                "glv_decompose_kernel", "glv_field_chain_kernel") \
     + GLV_PAIR_KERNELS
+BATCH_KERNELS = ("sha256d_headers_kernel", "sha256d_pairs_kernel",
+                 "merkle_tree_kernel", "sha256d_chain_kernel")
 _ALU_ONLY = ("SHF", "SHL", "SHR", "LOP3", "PRMT", "ISETP")
 _NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
             "ATOM", "RED", "S2R", "NOP", "BSSY", "BSYNC", "WARPSYNC", "LDC",
@@ -1049,14 +1131,14 @@ _NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
 
 
 def _kernel_key(name: str) -> str:
-    """A mangled kernel name -> the name of W4_KERNELS, GLV_KERNELS or
-    SWEEP_KERNELS it holds, ``kernel<T>`` for a template instance (the name
-    itself when it holds none)."""
+    """A mangled kernel name -> the name of W4_KERNELS, GLV_KERNELS,
+    SWEEP_KERNELS or BATCH_KERNELS it holds, ``kernel<T>`` for a template
+    instance (the name itself when it holds none)."""
     import re
 
     key = next((k for k in W4_KERNELS + GLV_KERNELS + SWEEP_KERNELS
-                if k in name), None)
-    t = key and re.search(key + r"ILi(\d+)E", name)
+                + BATCH_KERNELS if k in name), None)
+    t = key and re.search(key + r"IL[ib](\d+)E", name)
     return f"{key}<{t.group(1)}>" if t else (key or name)
 
 
@@ -1454,7 +1536,7 @@ def mining_phase(workdir: str, network: str = "test",
                         "sweep_h7"),
     }
     dispatch.reset()
-    rows = {}
+    rows, mined = {}, []
     try:
         for name, (sweep, tile, entry) in engines.items():
             swept = [0]
@@ -1480,6 +1562,7 @@ def mining_phase(workdir: str, network: str = "test",
                 ok.append(_pow_hash(hdr.serialize(), hdr.nonce)
                           <= compact_to_target(hdr.bits)[0]
                           and cs.block_index[h] in cs.chain)
+            mined += [cs.block_index[h].header.serialize() for h in hashes]
             rows[name] = {
                 "blocks": len(hashes), "height": cs.tip().height,
                 "connected": cs.tip().height - height0 == blocks[name]
@@ -1497,7 +1580,711 @@ def mining_phase(workdir: str, network: str = "test",
             kv.close()
     return {"engines": rows, "fallbacks": fallbacks,
             "height": sum(r["blocks"] for r in rows.values()),
-            "resident": resident.snapshot()}
+            "resident": resident.snapshot(), "headers": mined}
+
+
+# ---- the batch SHA-256d kernels (K1, K2) ------------------------------------
+
+def compress_ops(kinds: str, iv_state: bool) -> tuple:
+    """(ALU-pipe, add) instructions of one compression in
+    csrc/sha256d_batch.cu for a block whose 16 words are ``kinds`` (v a
+    variable, c a constant, z zero), counted as sweep_ops_per_nonce counts:
+    a schedule word's sigma of a variable is 4 ALU instructions (a sigma of
+    a constant folds) and its n terms need n // 2 IADD3; a round is 10 ALU
+    and 4 adds, round 0 from the IV 3 adds; the state add 8."""
+    kind = dict(enumerate(kinds))
+    alu = adds = 0
+    for i in range(16, 64):
+        const = n_var = 0
+        for src, sigma in ((i - 16, False), (i - 15, True), (i - 7, False),
+                           (i - 2, True)):
+            if kind[src] == "c":
+                const = 1
+            elif kind[src] == "v":
+                n_var += 1
+                alu += 4 if sigma else 0
+        if n_var:
+            adds += (n_var + const) // 2
+        kind[i] = "v" if n_var else ("c" if const else "z")
+    alu += (63 if iv_state else 64) * 10
+    adds += 63 * 4 + (3 if iv_state else 4) + 8
+    return alu, adds
+
+
+def batch_ops() -> dict:
+    """ALU-pipe and add instructions of each batch entry's unit of work:
+    a header (sha256d_80: block 1, block 2 with the padding, the second
+    hash), its compare (8 byte swaps, 15 compares), and a pair
+    (sha256d_64: block 1, the constant padding block, the second hash)."""
+    second = compress_ops("v" * 8 + "c" + "z" * 6 + "c", True)
+    header = [compress_ops("v" * 16, True),
+              compress_ops("v" * 4 + "c" + "z" * 10 + "c", False), second]
+    pair = [compress_ops("v" * 16, True),
+            compress_ops("c" + "z" * 14 + "c", False), second]
+    out = {}
+    for name, parts, extra in (("header", header, 0), ("pow", header, 23),
+                               ("pair", pair, 0)):
+        alu = sum(a for a, _ in parts) + extra
+        adds = sum(b for _, b in parts)
+        out[name] = {"alu": alu, "adds": adds, "total": alu + adds}
+    return out
+
+
+def ops_ms(alu: int, clock_hz: float) -> float:
+    return alu / (SMS * INT_OPS_PER_SM_CLK * clock_hz) * 1e3
+
+
+def bound(alu: int, nbytes: int, clock_hz: float) -> dict:
+    o, b = ops_ms(alu, clock_hz), nbytes / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(o, b), "bound_by": "operations" if o >= b
+            else "bytes"}
+
+
+def hash_chain(clock_hz: float, seed: int = 13) -> dict:
+    """The latency of one dependent sha256d_64 (3 compressions) on the
+    card: the entry sha256d_chain (one thread) timed at two chain lengths,
+    the difference over the steps between them; its result equal to
+    hashlib's chain."""
+    import ctypes
+    import hashlib
+    import struct
+
+    import torch
+
+    vp = ctypes.c_void_p
+    rng = random.Random(seed)
+    seed_words = [rng.getrandbits(32) for _ in range(8)]
+    x = _u32_tensor(seed_words, "cuda")
+    out = torch.empty(8, dtype=torch.int32, device="cuda")
+    times = {steps: time_cuda(entry_call(
+        "sha256d_chain", [vp, ctypes.c_int, vp, vp], x.data_ptr(), steps,
+        out.data_ptr()), 5) for steps in (1024, 3072)}
+    d = struct.pack(">8I", *seed_words)
+    for _ in range(3072):
+        d = hashlib.sha256(hashlib.sha256(d + d).digest()).digest()
+    got = struct.pack(">8I", *(int(w) & 0xFFFFFFFF for w in out.cpu()))
+    if got != d:
+        raise AssertionError("sha256d_chain differs from hashlib's chain")
+    step_ms = (times[3072] - times[1024]) / 2048
+    return {"step_ms": step_ms, "cycles_a_step": step_ms * 1e-3 * clock_hz,
+            "times_ms": times}
+
+
+def _u32_tensor(a, dev):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)
+                            .view(np.int32)).to(dev)
+
+
+def header_case(B: int, seed: int, clock_hz: float, ops: dict,
+                step_ms: float, reps: int = 50) -> dict:
+    """sha256d_headers and check_headers_pow at B seeded headers (lane 0
+    the mainnet genesis header) against their plain versions on the card,
+    exactly equal; the digests against hashlib and the verdicts against
+    Python's compare, at a target equal to lane 1's hash (it passes) and
+    one below it (it fails), and at difficulty 1. The kernels' device
+    times (time_device, the C entries called directly), the wrapper's
+    time a call, the plain times, the bound and the chain floor (one
+    thread's sha256d)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from bitcoincashplus_tpu_torch.consensus.params import main_params
+    from bitcoincashplus_tpu_torch.consensus.pow import compact_to_target
+    from bitcoincashplus_tpu_torch.ops import sha256 as SH
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    headers = rng.integers(0, 256, (B, 80), dtype=np.uint8)
+    headers[0] = np.frombuffer(main_params().genesis.header.serialize(),
+                               np.uint8)
+    want = [hashlib.sha256(hashlib.sha256(h.tobytes()).digest()).digest()
+            for h in headers]
+    words = _u32_tensor(SH.headers_to_words_np(headers), dev)
+    got = SH.sha256d_headers_words(words)
+    if not torch.equal(got, SH.sha256d_headers_plain(words)):
+        raise AssertionError(f"sha256d_headers B={B}: kernel != plain")
+    got_bytes = SH.digests_to_bytes(list(got.cpu().numpy()
+                                         .view(np.uint32).T))
+    if [g.tobytes() for g in got_bytes] != want:
+        raise AssertionError(f"sha256d_headers B={B}: != hashlib")
+    values = [int.from_bytes(d, "little") for d in want]
+    for target in (values[1], values[1] - 1, compact_to_target(DIFF1_BITS)[0]):
+        tgt = _u32_tensor(SH.target_to_limbs_np(target), dev)
+        kd, ko = SH.check_headers_pow_words(words, tgt)
+        pd, po = SH.check_headers_pow_plain(words, tgt)
+        if not (torch.equal(kd, pd) and torch.equal(ko, po)
+                and torch.equal(kd, got)):
+            raise AssertionError(f"check_headers_pow B={B}: kernel != plain")
+        if ko.cpu().tolist() != [v <= target for v in values]:
+            raise AssertionError(f"check_headers_pow B={B}: != the compare")
+    out = torch.empty((B, 8), dtype=torch.int32, device=dev)
+    ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    ms = time_device(entry_call(
+        "sha256d_headers", SH.ENTRY_ARGS["sha256d_headers"],
+        words.data_ptr(), B, out.data_ptr()), clock_hz, reps)
+    pow_ms = time_device(entry_call(
+        "check_headers_pow", SH.ENTRY_ARGS["check_headers_pow"],
+        words.data_ptr(), B, tgt.data_ptr(), out.data_ptr(), ok.data_ptr()),
+        clock_hz, reps)
+    wrapper_ms = time_cuda(lambda: SH.sha256d_headers_words(words), reps)
+    plain_ms = time_once(lambda: SH.sha256d_headers_plain(words), dev)[0]
+    pow_plain_ms = time_once(lambda: SH.check_headers_pow_plain(words, tgt),
+                             dev)[0]
+    return {"B": B, "ms": ms, "plain_ms": plain_ms, "pow_ms": pow_ms,
+            "pow_plain_ms": pow_plain_ms, "wrapper_ms": wrapper_ms,
+            "max_abs_err": 0,
+            **bound(B * ops["header"]["alu"], B * (80 + 32), clock_hz),
+            "pow_bound": bound(B * ops["pow"]["alu"], B * (80 + 32 + 1) + 32,
+                               clock_hz),
+            "chain_floor_ms": step_ms}
+
+
+def tree_plan(n_levels: int) -> list:
+    """The merkle_tree entry's launches: (levels, blocks, threads) each,
+    TREE_LEVELS levels a launch from the leaves up."""
+    from bitcoincashplus_tpu_torch.ops.merkle import TREE_LEVELS
+
+    plan, left = [], n_levels
+    while left > 0:
+        lv = min(TREE_LEVELS, left)
+        plan.append((lv, 1 << (left - lv), 1 << (lv - 1)))
+        left -= lv
+    return plan
+
+
+def tree_work(bucket: int, m: int) -> tuple:
+    """(pair hashes, dependent hash steps) a tree of ``m`` live leaves
+    needs in the kernel: the live pairs of each level (pair 0 at least,
+    the witness), and the longest chain of sha256d_64 one thread computes
+    (a level's pairs over the launch's threads, for the levels with m > 1;
+    the first level's pair 0 when m <= 1)."""
+    pairs = steps = 0
+    mm = m
+    for lv, _blocks, threads in tree_plan(bucket.bit_length() - 1):
+        S = 1 << (lv - 1)
+        for j in range(lv):
+            if mm > 1:
+                pairs += (mm + 1) // 2
+                steps += -(-(S >> j) // threads)
+                mm = (mm + 1) // 2
+            elif pairs == 0:
+                pairs = steps = 1
+    return pairs, steps
+
+
+TREE_BUCKETS = (128, 512, 1024, 4096, 8192, 1 << 16)
+HEADER_SHAPES = (16, 17, 2048, 16384)
+PAIR_SHAPES = (128, 512, 1000, 1 << 16)
+
+
+def tree_case(bucket: int, seed: int, clock_hz: float, ops: dict,
+              step_ms: float, reps: int = 50) -> dict:
+    """merkle_tree at one bucket, against its plain version on the card
+    (root, mutated and witness exactly equal) and the host oracles
+    (compute_merkle_root and merkle_root_naive on the live leaves; the
+    witness sha256d(h0 || h1)), at live counts: the bucket (pow2), an odd
+    count, bucket / 2 + 1, a duplicated tail (mutated), equal pairs past m
+    (not mutated), and 2. Times at m = bucket (the most work): the
+    kernel's device time (time_device, the C entry called directly), the
+    wrapper's time a call, the plain time, the bound of the live pairs,
+    and the chain floor (the longest thread's dependent hashes x one
+    hash's measured latency)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from bitcoincashplus_tpu_torch.consensus import merkle as CM
+    from bitcoincashplus_tpu_torch.ops import merkle as MK
+
+    dev = torch.device("cuda")
+    n_levels = bucket.bit_length() - 1
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (bucket, 32), dtype=np.uint8)
+    odd = bucket * 3 // 4 + 1
+    cases = {"pow2": bucket, "odd": odd, "pow2+1": bucket // 2 + 1,
+             "dup_tail": odd + 1, "equal_past_m": odd, "m=2": 2}
+    rows = {}
+    for label, m in cases.items():
+        leaves = base.copy()
+        if label == "dup_tail":
+            leaves[m - 1] = leaves[m - 2]
+        if label == "equal_past_m":
+            leaves[m:] = leaves[m - 1]
+        hs = [leaves[i].tobytes() for i in range(m)]
+        words = _u32_tensor(MK._digests_to_words(leaves), dev)
+        k = MK.merkle_tree(words, n_levels, m)
+        p = MK.tree_reduce_plain(words, n_levels, m)
+        if not (torch.equal(k[0], p[0]) and bool(k[1]) == bool(p[1])
+                and torch.equal(k[2], p[2])):
+            raise AssertionError(f"merkle_tree {bucket} {label}: kernel != "
+                                 f"plain")
+        root = MK._words_to_digests(k[0].cpu().numpy().view(np.uint32)
+                                    [None])[0].tobytes()
+        wit = MK._words_to_digests(k[2].cpu().numpy().view(np.uint32)
+                                   [None])[0].tobytes()
+        want = CM.compute_merkle_root(hs)
+        if (root, bool(k[1])) != want or root != CM.merkle_root_naive(hs) \
+                or wit != hashlib.sha256(hashlib.sha256(
+                    hs[0] + hs[1]).digest()).digest():
+            raise AssertionError(f"merkle_tree {bucket} {label}: != the "
+                                 f"host oracles")
+        if bool(k[1]) != (label == "dup_tail"):
+            raise AssertionError(f"merkle_tree {bucket} {label}: mutated "
+                                 f"{bool(k[1])}")
+        rows[label] = {"m": m, "mutated": bool(k[1])}
+        if label == "pow2":
+            nodes = 1 << max(0, n_levels - MK.TREE_LEVELS)
+            scratch = torch.empty((2 * nodes, 8), dtype=torch.int32,
+                                  device=dev)
+            out = torch.empty(17, dtype=torch.int32, device=dev)
+            ms = time_device(entry_call(
+                "merkle_tree", MK.ENTRY_ARGS["merkle_tree"],
+                words.data_ptr(), n_levels, m, scratch.data_ptr(), nodes,
+                out.data_ptr()), clock_hz, reps)
+            if not torch.equal(out[:8], k[0]):
+                raise AssertionError(f"merkle_tree {bucket}: the timed "
+                                     f"launches' root differs")
+            wrapper_ms = time_cuda(
+                lambda: MK.merkle_tree(words, n_levels, m), reps)
+            plain_ms = time_once(
+                lambda: MK.tree_reduce_plain(words, n_levels, m), dev)[0]
+    pairs, steps = tree_work(bucket, bucket)
+    return {"bucket": bucket, "ms": ms, "plain_ms": plain_ms,
+            "wrapper_ms": wrapper_ms, "max_abs_err": 0, "cases": rows,
+            "launch_plan": tree_plan(n_levels),
+            **bound(pairs * ops["pair"]["alu"], bucket * 32 + 68, clock_hz),
+            "pair_hashes": pairs, "chain_steps": steps,
+            "chain_floor_ms": steps * step_ms}
+
+
+def pairs_case(n: int, seed: int, clock_hz: float, ops: dict,
+               step_ms: float, reps: int = 50) -> dict:
+    """The sha256d_pairs entry (hash_pairs_words) at n seeded rows against
+    its plain version on the card and hashlib, exactly equal; the
+    kernel's device time (time_device), the wrapper's, the plain time and
+    the bound."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import merkle as MK
+
+    dev = torch.device("cuda")
+    rows = np.random.default_rng(seed).integers(0, 1 << 32, (n, 16),
+                                                dtype=np.uint64)
+    words = _u32_tensor(rows.astype(np.uint32), dev)
+    got = MK.hash_pairs_words(words)
+    if not torch.equal(got, MK.hash_pairs_plain(words)):
+        raise AssertionError(f"sha256d_pairs n={n}: kernel != plain")
+    raw = rows.astype(">u4").tobytes()
+    want = b"".join(hashlib.sha256(hashlib.sha256(
+        raw[64 * i:64 * i + 64]).digest()).digest() for i in range(n))
+    if got.cpu().numpy().view(np.uint32).astype(">u4").tobytes() != want:
+        raise AssertionError(f"sha256d_pairs n={n}: != hashlib")
+    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    ms = time_device(entry_call(
+        "sha256d_pairs", MK.ENTRY_ARGS["sha256d_pairs"], words.data_ptr(), n,
+        out.data_ptr()), clock_hz, reps)
+    wrapper_ms = time_cuda(lambda: MK.hash_pairs_words(words), reps)
+    plain_ms = time_once(lambda: MK.hash_pairs_plain(words), dev)[0]
+    return {"N": n, "ms": ms, "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
+            "max_abs_err": 0,
+            **bound(n * ops["pair"]["alu"], n * 96, clock_hz),
+            "chain_floor_ms": step_ms}
+
+
+def _batch_counts_zero() -> None:
+    from bitcoincashplus_tpu_torch.ops import merkle as MK
+    from bitcoincashplus_tpu_torch.ops import sha256 as SH
+
+    _zero_counts()
+    MK.reset_launch_counts()
+    SH.reset_launch_counts()
+
+
+def _batch_counts() -> dict:
+    from bitcoincashplus_tpu_torch.ops import dispatch
+    from bitcoincashplus_tpu_torch.ops import merkle as MK
+    from bitcoincashplus_tpu_torch.ops import sha256 as SH
+
+    snap = dispatch.snapshot()
+    return {**MK.LAUNCHES, **SH.LAUNCHES,
+            "fallbacks": {site: snap.get(site, {}).get("fallback_calls", 0)
+                          for site in ("merkle", "sha256")}}
+
+
+class HostMerkleCount:
+    """Counts calls of the host consensus.merkle.compute_merkle_root (the
+    module attribute that ops/dispatch.merkle_root and ops/merkle import
+    at call time) by leaf count, while it is installed."""
+
+    def __init__(self):
+        from bitcoincashplus_tpu_torch.consensus import merkle as CM
+
+        self.mod, self.real, self.calls = CM, CM.compute_merkle_root, []
+
+    def __enter__(self):
+        def counted(hashes):
+            self.calls.append(len(hashes))
+            return self.real(hashes)
+
+        self.mod.compute_merkle_root = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.compute_merkle_root = self.real
+
+    def big(self, floor: int = 512) -> int:
+        return sum(n >= floor for n in self.calls)
+
+
+BIG_CHAIN_SIGS = 13_286       # 3 blocks of 4,095 spends, one of 1,001
+BIG_TXS_PER_BLOCK = 4_095     # + the coinbase: 4,096 leaves
+
+
+def _dummy_block(prev_hash: bytes, n_txs: int, t: int, salt: bytes):
+    """A regtest block of a coinbase and n_txs - 1 one-input transactions
+    that spend outputs nobody has (valid in form: CheckBlock's Merkle
+    rules come before any spend is looked up), its header mined."""
+    import hashlib
+
+    from bitcoincashplus_tpu_torch.consensus import merkle as CM
+    from bitcoincashplus_tpu_torch.consensus.block import (CBlock,
+                                                           CBlockHeader)
+    from bitcoincashplus_tpu_torch.consensus.tx import (COutPoint,
+                                                        CTransaction, CTxIn,
+                                                        CTxOut)
+
+    coinbase = CTransaction(
+        version=1, vin=(CTxIn(COutPoint(), b"\x03" + salt[:3] + b"dummy",
+                              0xFFFFFFFF),),
+        vout=(CTxOut(50, b"\x51"),))
+    txs = [coinbase] + [CTransaction(
+        version=1, vin=(CTxIn(COutPoint(hashlib.sha256(
+            salt + i.to_bytes(4, "little")).digest(), 0), b"", 0xFFFFFFFF),),
+        vout=(CTxOut(1000, b"\x51"),)) for i in range(n_txs - 1)]
+    root, _ = CM.compute_merkle_root([tx.txid for tx in txs])
+    return CBlock(_mine_regtest(CBlockHeader(
+        version=0x20000000, hash_prev_block=prev_hash, hash_merkle_root=root,
+        time=t, bits=0x207FFFFF)), tuple(txs))
+
+
+def _mine_regtest(header):
+    from bitcoincashplus_tpu_torch.consensus.pow import compact_to_target
+
+    target, _ = compact_to_target(header.bits)
+    while int.from_bytes(header.get_hash(), "little") > target:
+        header = header.with_nonce(header.nonce + 1)
+    return header
+
+
+def _submit(cs, block) -> str:
+    """process_new_block's reject reason for ``block`` ("" if accepted)."""
+    from bitcoincashplus_tpu_torch.validation.chainstate import \
+        BlockValidationError
+
+    try:
+        cs.process_new_block(block)
+    except BlockValidationError as e:
+        return e.reason
+    return ""
+
+
+def bigblock_phase(workdir: str, sigs: int = BIG_CHAIN_SIGS,
+                   txs_per_block: int = BIG_TXS_PER_BLOCK) -> dict:
+    """The block-validation main path with big blocks: a regtest chain of
+    one-input transactions (workload/sigchain.generate), whose dense blocks
+    have 4,096 leaves and a last one 1,002 (odd tails at levels 1, 2 and
+    4), read back through a ChainstateManager with
+    BlockScriptVerifier(backend="device") under the default GLV kernel,
+    counts zeroed just before and read just after: merkle_tree launched
+    once for each block of 512 leaves or more, the host compute_merkle_root
+    called for none of them, no merkle or sha256 fallback, and the coin
+    digest and best block equal to the CPU engine's (which runs with the
+    device Merkle gate raised past every block). The Merkle leg's time per
+    block is read by wrapping ops/dispatch.block_merkle_root. Then two
+    crafted blocks of 1,001 or more leaves on the tip: a duplicated tail
+    (rejected bad-txns-duplicate) and an altered header root (rejected
+    bad-txnmrklroot), each with one host confirmation."""
+    import dataclasses
+    import statistics as st
+
+    from bitcoincashplus_tpu_torch.consensus import merkle as CM
+    from bitcoincashplus_tpu_torch.consensus.block import CBlock
+    from bitcoincashplus_tpu_torch.ops import dispatch
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+    from bitcoincashplus_tpu_torch.workload import sigchain
+
+    t0 = time.monotonic()
+    gen = sigchain.generate(workdir, sigs, inputs_per_tx=1,
+                            txs_per_block=txs_per_block)
+    gen_s = time.monotonic() - t0
+    blocks = list(sigchain.read_blocks(workdir))
+    leaves = [len(b.vtx) for b in blocks]
+    big = [n for n in leaves if n >= dispatch._merkle_device_min()]
+    largest = max(len(b.serialize()) for b in blocks)
+    log(f"big-block chain: {gen['blocks']} blocks, {gen['sigs']} sigs, "
+        f"{gen['bytes']} bytes, generated in {gen_s:.1f} s; blocks of 512 "
+        f"leaves or more: {big}, largest {largest} bytes")
+    os.environ["BCP_TPU_MERKLE_MIN"] = str(1 << 40)
+    try:
+        _cs_cpu, cpu = sigchain.validate_chain(workdir, "cpu", depth=1)
+    finally:
+        os.environ.pop("BCP_TPU_MERKLE_MIN", None)
+    if E.active_kernel() != "glv":
+        raise AssertionError(f"the default kernel is {E.active_kernel()}")
+    leg = []
+    real_leg = dispatch.block_merkle_root
+
+    def timed_leg(block):
+        t = time.perf_counter()
+        out = real_leg(block)
+        leg.append((len(block.vtx), time.perf_counter() - t))
+        return out
+
+    dispatch.block_merkle_root = timed_leg
+    try:
+        _batch_counts_zero()
+        with HostMerkleCount() as host:
+            t0 = time.monotonic()
+            cs, dev = sigchain.validate_chain(workdir, "device",
+                                              depth=PIPELINE_DEPTH)
+            wall = time.monotonic() - t0
+        counts = {**_batch_counts(), **dict(S.LAUNCHES)}
+        stats = E.STATS.snapshot()
+    finally:
+        dispatch.block_merkle_root = real_leg
+    big_leg = [s for n, s in leg if n >= 512]
+
+    def median_s(fn, reps=5):
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t)
+        return st.median(ts)
+
+    # the same blocks' roots after the run, the card idle: the host loop,
+    # and the device leg alone (no signature batch in flight before it)
+    host_times, alone_times = [], []
+    for b in blocks:
+        if len(b.vtx) >= 512:
+            hs = [tx.txid for tx in b.vtx]
+            root = b.header.hash_merkle_root
+            host_times.append(median_s(lambda: CM.compute_merkle_root(hs)))
+            alone_times.append(median_s(
+                lambda: dispatch.merkle_root(hs, expected=root)))
+    # two crafted blocks on the tip
+    tip = cs.tip()
+    base = _dummy_block(tip.hash, 1001, tip.header.time + 60, b"crafted")
+    dup = CBlock(base.header, base.vtx + base.vtx[-1:])
+    bad_root = CBlock(_mine_regtest(dataclasses.replace(
+        base.header, hash_merkle_root=bytes(31) + b"\x01", nonce=0)),
+        base.vtx)
+    crafted = {}
+    for label, blk in (("duplicated_tail", dup), ("bad_root", bad_root)):
+        _batch_counts_zero()
+        with HostMerkleCount() as h:
+            reason = _submit(cs, blk)
+        crafted[label] = {"leaves": len(blk.vtx), "reason": reason,
+                          "host_confirmations": h.big(),
+                          "merkle_tree": _batch_counts()["merkle_tree"]}
+    checks = {
+        "digest_equal": dev["digest"] == cpu["digest"],
+        "best_equal": dev["best"] == cpu["best"],
+        "merkle_tree_per_big_block": counts["merkle_tree"] == len(big) == 4,
+        "no_host_merkle_on_big_blocks": host.big() == 0,
+        "no_fallback": not any(counts["fallbacks"].values())
+        and stats["cpu_fallback_sigs"] == 0,
+        "glv_launched": counts["glv_dev_verify"] > 0,
+        "odd_tail_block": sorted(set(leaves) & {1002}) == [1002],
+        "duplicated_tail_rejected":
+            crafted["duplicated_tail"]["reason"] == "bad-txns-duplicate",
+        "bad_root_rejected":
+            crafted["bad_root"]["reason"] == "bad-txnmrklroot",
+        "one_confirmation_each": all(c["host_confirmations"] == 1
+                                     and c["merkle_tree"] == 1
+                                     for c in crafted.values()),
+    }
+    return {"blocks": gen["blocks"], "sigs": gen["sigs"],
+            "bytes": gen["bytes"], "largest_block": largest, "gen_s": gen_s,
+            "big_leaves": big, "wall_s": wall,
+            "cpu_wall_s": cpu["wall_s"], "launches": counts,
+            "merkle_leg_s": big_leg, "merkle_leg_share": sum(big_leg) / wall,
+            "host_merkle_s": host_times, "leg_alone_s": alone_times,
+            "crafted": crafted,
+            "host_calls": host.calls, "checks": checks}
+
+
+def regtest_headers(n: int, seed: int = 21) -> list:
+    """n mined regtest headers, each on the last."""
+    from bitcoincashplus_tpu_torch.consensus.block import CBlockHeader
+    from bitcoincashplus_tpu_torch.consensus.params import regtest_params
+
+    params = regtest_params()
+    rng = random.Random(seed)
+    prev, out = params.genesis.header.get_hash(), []
+    for i in range(n):
+        h = _mine_regtest(CBlockHeader(
+            version=0x20000000, hash_prev_block=prev,
+            hash_merkle_root=rng.randbytes(32),
+            time=params.genesis.header.time + 60 * (i + 1),
+            bits=params.genesis.header.bits))
+        out.append(h.serialize())
+        prev = h.get_hash()
+    return out
+
+
+def _hashlib_mmr(hs: list) -> bytes:
+    import hashlib
+
+    def h2(b):
+        return hashlib.sha256(hashlib.sha256(b).digest()).digest()
+
+    def tree(ls):
+        return ls[0] if len(ls) == 1 else h2(tree(ls[:len(ls) // 2])
+                                              + tree(ls[len(ls) // 2:]))
+
+    peaks, pos, n = [], 0, len(hs)
+    for bit in range(n.bit_length() - 1, -1, -1):
+        if n & (1 << bit):
+            peaks.append(tree(hs[pos:pos + (1 << bit)]))
+            pos += 1 << bit
+    acc = peaks[-1]
+    for p in reversed(peaks[:-1]):
+        acc = h2(p + acc)
+    return acc
+
+
+def headers_phase(mined: list, n: int = 2000) -> dict:
+    """The header PoW batch and the certificate MMR (counts zeroed just
+    before each run, read just after): a 2,000-header regtest chain (a
+    full `headers` message) through consensus/pow.check_headers_pow_batch,
+    verdicts equal to per-header check_proof_of_work, one sha256d_headers
+    launch at B = 2048; again with one header at nBits 0x1d00ffff whose
+    nonce misses (its lane False, confirmed on the host once) and the
+    mining phase's testnet difficulty-1 headers; then store/certificate.
+    mmr_root over the chain's header hashes against a hashlib MMR, one
+    sha256d_pairs launch for each MMR level of 128 pairs or more."""
+    from bitcoincashplus_tpu_torch.consensus.block import CBlockHeader
+    from bitcoincashplus_tpu_torch.consensus.params import regtest_params
+    from bitcoincashplus_tpu_torch.consensus.pow import (
+        check_headers_pow_batch, check_proof_of_work, compact_to_target)
+    from bitcoincashplus_tpu_torch.crypto import hashes
+    from bitcoincashplus_tpu_torch.store import certificate
+    from bitcoincashplus_tpu_torch.util import devicewatch as dw
+
+    params = regtest_params().consensus
+    chain = regtest_headers(n)
+    miss = CBlockHeader(version=1, hash_merkle_root=b"\x22" * 32,
+                        time=1_700_000_000, bits=DIFF1_BITS, nonce=3)
+    if int.from_bytes(miss.get_hash(), "little") <= \
+            compact_to_target(DIFF1_BITS)[0]:
+        raise AssertionError("the missing header hits")
+    runs = {}
+    for label, batch in (("chain", chain),
+                         ("miss_and_mined", chain[:1234] + [miss.serialize()]
+                          + chain[1235:] + list(mined))):
+        want = [check_proof_of_work(hashes.sha256d(h), int.from_bytes(
+            h[72:76], "little"), params) for h in batch]
+        _batch_counts_zero()
+        sigs0 = dict(dw.program("sha256_headers").snapshot()["signatures"])
+        calls = []
+        real = hashes.sha256d
+        hashes.sha256d = lambda b: calls.append(b) or real(b)
+        try:
+            t0 = time.perf_counter()
+            got = check_headers_pow_batch(batch, params)
+            wall = time.perf_counter() - t0
+        finally:
+            hashes.sha256d = real
+        sigs = dw.program("sha256_headers").snapshot()["signatures"]
+        new = {k: v - sigs0.get(k, 0) for k, v in sigs.items()
+               if v != sigs0.get(k, 0)}
+        t0 = time.perf_counter()
+        [check_proof_of_work(hashes.sha256d(h), int.from_bytes(
+            h[72:76], "little"), params) for h in batch]
+        host_wall = time.perf_counter() - t0
+        runs[label] = {"headers": len(batch), "equal": got == want,
+                       "false": len(got) - sum(got), "shapes": new,
+                       "wall_ms": wall * 1e3,
+                       "per_header_host_ms": host_wall * 1e3,
+                       "host_confirmations": sum(c != batch[0]
+                                                 for c in calls),
+                       **_batch_counts()}
+    hs = [hashes.sha256d(h) for h in chain]
+    _batch_counts_zero()
+    root = certificate.mmr_root(hs)
+    cert = {"leaves": len(hs), "equal": root == _hashlib_mmr(hs),
+            **_batch_counts()}
+    # MMR levels of 128 pairs or more: each peak of 2^k leaves has levels
+    # of 2^(k-1), 2^(k-2), ... pairs
+    levels = sum(1 for k in range(n.bit_length()) if n >> k & 1
+                 for j in range(k) if 1 << j >= 128)
+    checks = {
+        "chain_equal": runs["chain"]["equal"] and runs["chain"]["false"] == 0,
+        "one_launch_at_2048": all(r["sha256d_headers"] == 1
+                                  and r["shapes"] == {"((2048, 20),)": 1}
+                                  for r in runs.values()),
+        "miss_false_and_confirmed": runs["miss_and_mined"]["equal"]
+        and runs["miss_and_mined"]["false"] == 1
+        and runs["miss_and_mined"]["host_confirmations"] == 1,
+        "mined_headers": len(mined) > 0,
+        "no_fallback": not any(r["fallbacks"]["sha256"]
+                               for r in runs.values()),
+        "mmr_equal": cert["equal"],
+        "pairs_per_wide_level": cert["sha256d_pairs"] == levels == 6,
+        "mmr_no_fallback": cert["fallbacks"]["merkle"] == 0,
+    }
+    return {"runs": runs, "certificate": cert, "checks": checks}
+
+
+def merkle_gate_phase(sizes=(128, 512, 1024, 4096), reps: int = 7) -> dict:
+    """The host compute_merkle_root beside the device leg end to end
+    (ops/dispatch.merkle_root with the gate lowered to 1, the header's root
+    given), median wall of ``reps`` calls after one warm-up, at each leaf
+    count: where the reference's 512-leaf gate sits on this card."""
+    import hashlib
+    import statistics as st
+
+    from bitcoincashplus_tpu_torch.consensus import merkle as CM
+    from bitcoincashplus_tpu_torch.ops import dispatch
+
+    out = {}
+    for n in sizes:
+        hs = [hashlib.sha256(f"gate:{n}:{i}".encode()).digest()
+              for i in range(n)]
+        root, _ = CM.compute_merkle_root(hs)
+        row = {}
+        for leg in ("host", "device"):
+            def call(leg=leg):
+                if leg == "host":
+                    return CM.compute_merkle_root(hs)
+                return dispatch.merkle_root(hs, expected=root)
+
+            os.environ["BCP_TPU_MERKLE_MIN"] = "1" if leg == "device" \
+                else str(1 << 40)
+            try:
+                if call() != (root, False):
+                    raise AssertionError(f"merkle gate {n} {leg}: wrong root")
+                ts = []
+                for _ in range(reps):
+                    t = time.perf_counter()
+                    call()
+                    ts.append(time.perf_counter() - t)
+            finally:
+                os.environ.pop("BCP_TPU_MERKLE_MIN", None)
+            row[f"{leg}_ms"] = st.median(ts) * 1e3
+        out[n] = row
+    return out
 
 
 def dev_tip(summary: dict) -> bytes:
@@ -1517,6 +2304,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from bitcoincashplus_tpu_torch.ops import cuda_build
+        from bitcoincashplus_tpu_torch.ops import dispatch as DP
         from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
         from bitcoincashplus_tpu_torch.ops import secp256k1 as S
         from bitcoincashplus_tpu_torch.ops import sha256_sweep as SW
@@ -1549,7 +2337,7 @@ def main() -> int:
     sass = {}
     for lib in info["libraries"].values():
         sass.update(sass_counts(lib, W4_KERNELS + GLV_KERNELS
-                                + SWEEP_KERNELS) or {})
+                                + SWEEP_KERNELS + BATCH_KERNELS) or {})
     # the w4 kernels keep every value in registers and shared memory: no
     # stack frame, no spill, no local load or store in their SASS
     w4 = {fn: r for fn, r in ptxas.items() if "w4_" in fn}
@@ -1605,6 +2393,28 @@ def main() -> int:
             f"{sc['alu'] / count['alu']:.3f}, integer ratio "
             f"{sc['integer'] / count['total']:.3f}); top {sc['top']}")
         ops[key] = min(ops[key], sc["alu"])
+    # the batch kernels: no local memory; SASS beside the counts from the
+    # rounds (a header and a pair are one thread's straight-line work)
+    batch = {k: {**ptxas.get(k, {}), **{f"sass_{f}": v.get(f) for f, v in
+                                        ((f, sass.get(k, {})) for f in
+                                         ("total", "alu", "local"))}}
+             for k in sorted(set(ptxas) | set(sass))
+             if k.startswith(BATCH_KERNELS)}
+    for k, v in batch.items():
+        log(f"batch build: {k}: {v}")
+    if len(batch) != len(BATCH_KERNELS) + 1 or any(
+            v.get("registers") is None or v["stack"] or v["spill_stores"]
+            or v["spill_loads"] or v["sass_local"] for v in batch.values()):
+        raise AssertionError(f"batch kernels missing from the build report "
+                             f"or using local memory: {batch}")
+    bops = batch_ops()
+    for key, kernel in (("header", "sha256d_headers_kernel<0>"),
+                        ("pair", "sha256d_pairs_kernel")):
+        if batch[kernel]["sass_alu"] is not None:
+            log(f"SASS of {kernel}: {batch[kernel]['sass_total']} "
+                f"instructions, {batch[kernel]['sass_alu']} ALU-pipe only; "
+                f"the rounds count {bops[key]} a {key} (ALU ratio "
+                f"{batch[kernel]['sass_alu'] / bops[key]['alu']:.3f})")
 
     # 2. the w4 field core alone, then the ECDSA kernels at every shape,
     # team size and block size
@@ -1683,6 +2493,41 @@ def main() -> int:
                 f"{r['settings']} settings equal, {r['found']} of "
                 f"{SWEEP_STARTS} starts hit, straddle {r['straddle']}")
 
+    # 3b. the batch SHA-256d kernels against their plain versions
+    chain = hash_chain(clock_hz)
+    log(f"sha256d_chain: one dependent sha256d_64 (3 compressions) "
+        f"{chain['step_ms'] * 1e3:.3f} us = {chain['cycles_a_step']:.0f} "
+        f"cycles; equal to hashlib's chain")
+    step = chain["step_ms"]
+    hdr_rows = [header_case(B, 400 + i, clock_hz, bops, step)
+                for i, B in enumerate(HEADER_SHAPES)]
+    tree_rows = [tree_case(b, 500 + i, clock_hz, bops, step)
+                 for i, b in enumerate(TREE_BUCKETS)]
+    pair_rows = [pairs_case(n, 600 + i, clock_hz, bops, step)
+                 for i, n in enumerate(PAIR_SHAPES)]
+    for r in hdr_rows:
+        log(f"sha256d_headers B={r['B']}: kernel {r['ms']:.4f} ms (the "
+            f"wrapper {r['wrapper_ms']:.4f} ms a call), plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}), chain floor {r['chain_floor_ms']:.4f} ms; "
+            f"check_headers_pow {r['pow_ms']:.4f} ms, plain "
+            f"{r['pow_plain_ms']:.1f} ms; equal to the plain versions, "
+            f"hashlib and the compare")
+    for r in tree_rows:
+        log(f"merkle_tree bucket={r['bucket']} (launches "
+            f"{r['launch_plan']}): kernel {r['ms']:.4f} ms at m = bucket "
+            f"(the wrapper {r['wrapper_ms']:.4f} ms a call), "
+            f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}, {r['pair_hashes']} pair hashes), chain "
+            f"floor {r['chain_floor_ms']:.4f} ms ({r['chain_steps']} "
+            f"dependent hashes); cases {r['cases']} equal to the plain "
+            f"version and the host oracles")
+    for r in pair_rows:
+        log(f"sha256d_pairs N={r['N']}: kernel {r['ms']:.4f} ms (the "
+            f"wrapper {r['wrapper_ms']:.4f} ms a call), plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}); equal to the plain version and hashlib")
+
     # 4. a known answer: the mainnet genesis window
     gen = genesis_phase()
     log(f"genesis: {json.dumps(gen, sort_keys=True)}")
@@ -1742,6 +2587,28 @@ def main() -> int:
                 f"{r['degen_lanes']} degen lane(s), err {r['max_abs_err']}, "
                 f"{path_shapes[name].get(r['B'], 0)} main-path launch(es)")
 
+    # 5b. the validation path with big blocks (the device Merkle leg)
+    bdir = os.path.join(REPO, "build", "smoke_bigchain")
+    shutil.rmtree(bdir, ignore_errors=True)
+    try:
+        bb = bigblock_phase(bdir)
+    finally:
+        shutil.rmtree(bdir, ignore_errors=True)
+    log(f"big blocks: {json.dumps(bb, sort_keys=True)}")
+    log(f"big blocks: {bb['sigs']} sigs, {bb['blocks']} blocks in "
+        f"{bb['wall_s']:.3f} s on the device path (CPU engine "
+        f"{bb['cpu_wall_s']:.3f} s); the Merkle leg of the blocks of "
+        f"{bb['big_leaves']} leaves "
+        f"{[round(t * 1e3, 3) for t in bb['merkle_leg_s']]} ms "
+        f"(after the run, the card idle: the leg alone "
+        f"{[round(t * 1e3, 3) for t in bb['leg_alone_s']]} ms, the host "
+        f"compute_merkle_root "
+        f"{[round(t * 1e3, 3) for t in bb['host_merkle_s']]} ms) = "
+        f"{100 * bb['merkle_leg_share']:.3f}% of the wall; launches "
+        f"{bb['launches']}; crafted {bb['crafted']}")
+    if not all(bb["checks"].values()):
+        raise AssertionError(f"big-block checks failed: {bb['checks']}")
+
     # 6. the mining slice (the sweeps' main path; counts zeroed inside,
     # just before each engine, read just after)
     mdir = os.path.join(REPO, "build", "smoke_mining")
@@ -1782,6 +2649,19 @@ def main() -> int:
     }
     if not all(checks.values()):
         raise AssertionError(f"mining checks failed: {checks}")
+
+    # 6b. header PoW batches and the certificate MMR (counts zeroed
+    # inside); 6c. the host Merkle root beside the device leg
+    hp = headers_phase(mine["headers"])
+    log(f"headers: {json.dumps(hp, sort_keys=True)}")
+    if not all(hp["checks"].values()):
+        raise AssertionError(f"header checks failed: {hp['checks']}")
+    gate = merkle_gate_phase()
+    for n, row in gate.items():
+        log(f"merkle root of {n} leaves end to end: host "
+            f"{row['host_ms']:.3f} ms, device leg {row['device_ms']:.3f} ms "
+            f"(the gate sends {DP._merkle_device_min()} leaves or more to "
+            f"the device)")
 
     # 7. report: each kernel at the shape the main path launched most
     replaces = {
@@ -1851,6 +2731,41 @@ def main() -> int:
                                           "plain_ms", "bound_ms", "ghs")}
                        for r in shapes_rows],
         })
+    # the batch kernels: launches on their paths (the header batches, the
+    # big-block validation and its crafted blocks, the certificate MMR);
+    # check_headers_pow is on none (check_headers_pow_batch compares each
+    # digest on the host)
+    batch_src = "bitcoincashplus_tpu_torch/csrc/sha256d_batch.cu"
+    hdr_main = next(r for r in hdr_rows if r["B"] == 2048)
+    tree_main = next(r for r in tree_rows if r["bucket"] == 4096)
+    pair_main = next(r for r in pair_rows if r["N"] == 512)
+    batch_entries = (
+        ("sha256d_headers", "bitcoincashplus_tpu/ops/sha256.py:293",
+         sum(r["sha256d_headers"] for r in hp["runs"].values()), hdr_main,
+         hdr_rows, {"ms": "ms", "plain_ms": "plain_ms"}),
+        ("check_headers_pow", "bitcoincashplus_tpu/ops/sha256.py:300", 0,
+         {**hdr_main, **hdr_main["pow_bound"]}, hdr_rows,
+         {"ms": "pow_ms", "plain_ms": "pow_plain_ms"}),
+        ("merkle_tree", "bitcoincashplus_tpu/ops/merkle.py:46",
+         bb["launches"]["merkle_tree"] + sum(
+             c["merkle_tree"] for c in bb["crafted"].values()), tree_main,
+         tree_rows, {"ms": "ms", "plain_ms": "plain_ms"}),
+        ("sha256d_pairs", "bitcoincashplus_tpu/ops/merkle.py:90",
+         hp["certificate"]["sha256d_pairs"], pair_main, pair_rows,
+         {"ms": "ms", "plain_ms": "plain_ms"}),
+    )
+    for name, where, launches, row, rows, keys in batch_entries:
+        kernels.append({
+            "name": name, "route": "cuda", "source": batch_src,
+            "replaces": where, "launches": launches, "max_abs_err": 0,
+            "ms": row[keys["ms"]], "plain_ms": row[keys["plain_ms"]],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "chain_floor_ms": row["chain_floor_ms"],
+            "shapes": [{k: r[k] for k in ("B", "bucket", "N", "ms",
+                                          "pow_ms", "wrapper_ms", "plain_ms",
+                                          "bound_ms", "chain_floor_ms")
+                        if k in r}
+                       for r in rows]})
     for kern in sorted(set(PATH_ORDER)):
         walls = [run["wall_s"] for run in sl["runs"]
                  if run["kernel"] == kern]

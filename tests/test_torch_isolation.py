@@ -24,19 +24,13 @@ HOST_COPIES = (
     "consensus/tx_check consensus/block consensus/merkle consensus/params "
     "consensus/versionbits consensus/pow script/__init__ script/script "
     "script/sighash script/interpreter store/kvstore store/blockstore "
-    "store/chainstatedb store/muhash validation/__init__ validation/chain "
-    "validation/coins validation/sigcache validation/scriptcheck "
-    "validation/chainstate wallet/keys wallet/signing native "
-    "mining/__init__ mining/assembler mining/generate"
+    "store/chainstatedb store/muhash store/certificate validation/__init__ "
+    "validation/chain validation/coins validation/sigcache "
+    "validation/scriptcheck validation/chainstate wallet/keys wallet/signing "
+    "native mining/__init__ mining/assembler mining/generate"
 ).split()
 # the package __init__ is the port's own (its docstring describes the port)
 HOST_COPIES.remove("__init__")
-
-
-def _drop_check_headers_pow_batch(src: str) -> str:
-    # batched header PoW belongs to the sha256 kernel (K1), a later slice
-    a = src.index("def check_headers_pow_batch(")
-    return src[:a] + src[src.index("def get_block_proof(", a):]
 
 
 def _reraise_kernel_unavailable(src: str) -> str:
@@ -67,7 +61,6 @@ def _reraise_kernel_unavailable(src: str) -> str:
 # mining/resident.py (a CUDA stream of segments in place of JAX async
 # dispatch).
 DIFFERENCES = {
-    "consensus/pow": _drop_check_headers_pow_batch,
     "validation/scriptcheck": _reraise_kernel_unavailable,
 }
 
@@ -115,9 +108,12 @@ FUNCTION_DIFFERENCES = {
 
 
 # functions of the port's own modules that keep the reference's code as it
-# is (the docstring aside): the GLV host part, and what feeds the GLV legs
-# (the device split's byte emit, the known-answer lanes, the packed blobs)
-FUNCTION_COPIES = [("ops/ecdsa_batch", name) for name in (
+# is (the docstring aside): the GLV host part, what feeds the GLV legs
+# (the device split's byte emit, the known-answer lanes, the packed
+# blobs), and the Merkle front door (its gate and CPU confirmation)
+FUNCTION_COPIES = [
+    ("ops/dispatch", "merkle_root"), ("ops/dispatch", "_merkle_device_min"),
+] + [("ops/ecdsa_batch", name) for name in (
     "active_kernel", "_glv_pack_parts", "pack_records_glv",
     "pack_records_w4_bytes", "_kat_records", "records_to_blobs")] + [("ops/secp256k1", name) for name in (
         "_round_div", "glv_split", "glv_decompose", "_np_limbs16",
@@ -152,6 +148,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import bitcoincashplus_tpu_torch.workload.sigchain\n"
         "import bitcoincashplus_tpu_torch.mining.generate\n"
         "import bitcoincashplus_tpu_torch.mining.resident\n"
+        "import bitcoincashplus_tpu_torch.ops.merkle\n"
+        "import bitcoincashplus_tpu_torch.ops.sha256\n"
+        "import bitcoincashplus_tpu_torch.store.certificate\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m.startswith('jaxlib')\n"
         "             or m == 'bitcoincashplus_tpu'\n"
@@ -236,6 +235,41 @@ def test_reference_readers_find_what_they_read_in_the_port(module):
     assert reads, module
     missing = sorted(n for n in reads if not hasattr(ecdsa_batch, n))
     assert not missing, f"{module} reads {missing} from ops/ecdsa_batch"
+
+
+# reference modules (copied byte for byte, or pinned function by function)
+# that import names from the kernel modules ops/sha256 and ops/merkle
+KERNEL_MODULE_READERS = ("consensus/pow", "store/certificate",
+                         "ops/dispatch")
+
+
+def _kernel_module_imports(module: str) -> dict:
+    """{"ops/sha256" | "ops/merkle": names} imported by the reference
+    module (relative imports resolved against its package)."""
+    path = os.path.join(REF, module + ".py")
+    pkg = module.split("/")[:-1]
+    out: dict = {}
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            base = pkg[:len(pkg) - (node.level - 1)]
+            target = "/".join(base + (node.module or "").split("."))
+            if target in ("ops/sha256", "ops/merkle"):
+                out.setdefault(target, set()).update(a.name
+                                                     for a in node.names)
+    return out
+
+
+@pytest.mark.parametrize("module", KERNEL_MODULE_READERS)
+def test_reference_readers_find_the_kernel_modules_names_in_the_port(module):
+    import importlib
+
+    reads = _kernel_module_imports(module)
+    assert reads, module
+    for target, names in sorted(reads.items()):
+        mod = importlib.import_module(
+            "bitcoincashplus_tpu_torch." + target.replace("/", "."))
+        missing = sorted(n for n in names if not hasattr(mod, n))
+        assert not missing, f"{module} imports {missing} from {target}"
 
 
 def _literal_keys(node) -> dict:
