@@ -1,7 +1,8 @@
 """ECDSA batch dispatch — the host side of the signature kernels.
 
 Port of the reference's ops/ecdsa_batch.py for the ``-ecdsakernel=glv``
-(the default) and ``-ecdsakernel=w4`` rungs. The block's deferred
+(the default), ``-ecdsakernel=w4`` and ``-ecdsakernel=msm`` rungs. The
+block's deferred
 sigcheck records are packed on the host (w = s^-1, u1 = e w, u2 = r w;
 byte matrices or 13-bit limb planes) and verified in one launch of a
 hand-written CUDA kernel (ops/secp256k1.py, csrc/*.cu). The ladder, as the
@@ -19,22 +20,32 @@ reference's:
     w4_verify_planes);
   - the packed blobs of the native connect engine (``dispatch_packed``),
     in 8190-lane slices (bucket 8192), down the same ladder from the
-    GLV device split.
+    GLV device split;
+  - under ``msm``, the Schnorr lanes of a batch (65-byte signatures) go
+    to the Pippenger batch check (``_dispatch_msm``: one MSM over the
+    batch equation on the card, ops/secp256k1.schnorr_msm_is_infinity,
+    csrc/msm.cu), behind the reference's canary batches, bisection and
+    host prechecks; the ECDSA lanes take the GLV ladder.
 
 Kept from the reference: the bucket sets, the two known-answer lanes on
 every device batch, the host re-verify of degenerate lanes, the host
-confirmation of every device False, the ecdsa circuit breaker with its
-retries and fault sites (``ecdsa``, ``ecdsa_glv``, ``ecdsa_glv_dev``),
+confirmation of every device False, the MSM rung's canary batches,
+bisection and counters, the ecdsa circuit breaker with its retries and
+fault sites (``ecdsa``, ``ecdsa_glv``, ``ecdsa_glv_dev``, ``ecdsa_msm``),
 BatchHandle, SigBatchFuture and LanePacker.
 
-Differences, all deliberate: the Schnorr MSM is a later slice of the
-port, and ``set_kernel("msm")`` raises; Schnorr lanes take the per-lane
-oracle (the reference's route when msm is not selected). The ladder
-steps down a rung (GLV device split -> GLV host split -> w4) only for a
-fault the harness injected (``BCP_FAULT_*`` on ``ecdsa_glv_dev`` or
-``ecdsa_glv``); every other failure of a GLV leg raises
-``KernelUnavailable``, and so do known-answer lanes that come back wrong
-when no fault poisoned them. The device is ``cuda`` unless
+Differences, all deliberate: the ladder steps down a rung (GLV device
+split -> GLV host split -> w4) only for a fault the harness injected
+(``BCP_FAULT_*`` on ``ecdsa_glv_dev`` or ``ecdsa_glv``); every other
+failure of a GLV leg raises ``KernelUnavailable``, and so do
+known-answer lanes that come back wrong when no fault poisoned them. In
+the same way the per-lane Schnorr oracle serves an MSM batch only after
+a fault injected at ``ecdsa_msm`` or ``ecdsa`` (a fail-* mode, or a
+canary trip from poison-output); any other failure of the MSM rung
+raises. The oracle's other routes are the reference's own: lanes the
+host prechecks reject, sub-batches of ``MSM_MIN_BATCH`` or fewer, and
+``auto`` batches below ``CPU_FLOOR``. Under ``msm`` the packed entry's
+ECDSA lanes take the GLV ladder, as the record entry's do. The device is ``cuda`` unless
 ``set_device("cpu")`` (ops/cuda_build.py, re-exported here) selects the
 plain PyTorch versions (the tests). A kernel that cannot be built or
 launched raises ``KernelUnavailable`` through the supervision, and so
@@ -50,6 +61,7 @@ Python-int oracle.
 from __future__ import annotations
 
 import os
+import random
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
@@ -139,6 +151,18 @@ _PW_GLV_DEV = dw.program("ecdsa_glv_decompose",
                          shape_budget=PALLAS_SHAPE_BUDGET)
 _PW_W4_BYTES = dw.program("ecdsa_w4_bytes", shape_budget=PALLAS_SHAPE_BUDGET)
 _PW_W4 = dw.program("ecdsa_w4", shape_budget=len(BUCKETS))
+# The Pippenger MSM batch check: term counts pad to the _MSM_BUCKETS
+# ladder, and the canary batches reuse the smallest bucket, so the shape
+# set is exactly that ladder.
+_MSM_BUCKETS = (64, 256, 1024, 4096, 8192, 16384)
+MSM_SHAPE_BUDGET = len(_MSM_BUCKETS)
+_PW_MSM = dw.program("ecdsa_msm", shape_budget=MSM_SHAPE_BUDGET)
+# A batch of n Schnorr sigs costs M = 2n + 1 MSM terms (R_i, P_i and the
+# shared G term); the cap keeps M inside the largest bucket (bigger
+# submissions chunk, each chunk an independent batch equation).
+MSM_MAX_RECORDS = 8190
+# Below this the bisection hands lanes straight to the per-lane oracle.
+MSM_MIN_BATCH = 8
 
 
 def _to_device(arrays) -> list:
@@ -175,18 +199,20 @@ def _watched_kernel(pw, bucket: int, arrays, fn, split: int | None = 16384):
 
 # "glv": the endomorphism split verifier (32 windows over the Q and
 # lambda Q streams and the fixed-base G comb; the default, as in the
-# reference); "w4": the 64-window kernel, the rung below it. The
-# reference's "msm" (the Schnorr batch check) is a later slice.
-ECDSA_KERNELS = ("glv", "w4")
-_LATER_SLICES = {
-    "msm": "the Schnorr MSM kernel (K9) is a later slice of the port",
-}
+# reference); "w4": the 64-window kernel, the rung below it; "msm": the
+# Pippenger batch check for the Schnorr lanes (ECDSA lanes under it take
+# the GLV ladder).
+ECDSA_KERNELS = ("glv", "w4", "msm")
 # Fault-injection sites of the GLV legs, explicit opt-in only (util/faults):
 # fail-* on GLV_DEV_SITE steps the device-split leg down to the host split,
 # on GLV_SITE (which both GLV legs consult) down to w4; poison-output on
 # either proves the known-answer gate.
 GLV_SITE = "ecdsa_glv"
 GLV_DEV_SITE = "ecdsa_glv_dev"
+# The MSM batch check's site, explicit-only like the GLV legs: fail-*
+# sends the batch to the per-lane oracle, poison-output flips every batch
+# verdict (canaries included) and so trips the canary gate.
+MSM_SITE = "ecdsa_msm"
 _KERNEL = None  # set_kernel() override; None = BCP_ECDSA_KERNEL or "glv"
 _BAD_ENV_WARNED = False
 
@@ -209,15 +235,14 @@ def active_kernel() -> str:
 
 
 def set_kernel(name: str) -> str:
-    """Select the device verify kernel ("glv" or "w4"); raises ValueError
-    for any other name, naming the later slice for "msm"."""
+    """Select the device verify kernel ("glv", "w4" or "msm"); raises
+    ValueError for any other name."""
     global _KERNEL
     if name not in ECDSA_KERNELS:
-        later = _LATER_SLICES.get(name)
         raise ValueError(
-            f"-ecdsakernel={name!r}: "
-            + (f"not ported yet ({later})" if later else "unknown kernel")
-            + f" (valid: {', '.join(ECDSA_KERNELS)})")
+            f"-ecdsakernel={name!r}: unknown kernel "
+            f"(valid: {', '.join(ECDSA_KERNELS)})"
+        )
     _KERNEL = name
     return name
 
@@ -238,9 +263,7 @@ def glv_dev_enabled() -> bool:
 def kernel_info() -> dict:
     """The info RPC's ``ecdsa`` section, with the reference's keys: the
     active kernel, GLV health (never latched here), the comb's one-time
-    build cost, the pack-stage split and the MSM counters (the MSM
-    kernel is a later slice: Schnorr lanes go to the per-lane oracle, so
-    its dispatch counters stay 0)."""
+    build cost, the pack-stage split and the MSM counters."""
     from . import secp256k1 as dev_mod
 
     return {
@@ -263,13 +286,13 @@ def kernel_info() -> dict:
         "msm": {
             "schnorr_sigs": STATS.schnorr_sigs,
             "schnorr_cpu_sigs": STATS.schnorr_cpu_sigs,
-            "dispatches": 0,
-            "batches_accepted": 0,
-            "batches_rejected": 0,
-            "bisects": 0,
-            "bisect_depth_max": 0,
-            "fallback_sigs": 0,
-            "canary_failures": 0,
+            "dispatches": STATS.msm_dispatches,
+            "batches_accepted": STATS.msm_batches_accepted,
+            "batches_rejected": STATS.msm_batches_rejected,
+            "bisects": STATS.msm_bisects,
+            "bisect_depth_max": STATS.msm_bisect_depth_max,
+            "fallback_sigs": STATS.msm_fallback_sigs,
+            "canary_failures": STATS.msm_canary_failures,
         },
     }
 
@@ -319,9 +342,29 @@ class BatchStats:
     kat_failures: int = 0
     # device-False lanes host-confirmed before they could reject a block
     reject_confirm_sigs: int = 0
-    # Schnorr records entering dispatch, all settled by the per-lane oracle
+    # Schnorr + MSM batch verification: schnorr_sigs counts every Schnorr
+    # record entering dispatch; schnorr_cpu_sigs the ones settled by the
+    # per-lane oracle (no MSM, bisect base cases, and injected-fault
+    # re-verifies). msm_dispatches counts MSM kernel calls (canary batches
+    # included); a rejected batch bisects (msm_bisects, with the deepest
+    # split level in msm_bisect_depth_max). msm_fallback_sigs are lanes
+    # that left the MSM rung after injected faults; msm_canary_failures
+    # are canary-gate trips (also kat_failures). The port's own split of
+    # the MSM time: msm_host_s the host work of each check (challenges,
+    # coefficients, the byte pack), msm_device_s its kernel call with the
+    # wait for the verdict, msm_canary_s the whole canary checks.
     schnorr_sigs: int = 0
     schnorr_cpu_sigs: int = 0
+    msm_dispatches: int = 0
+    msm_batches_accepted: int = 0
+    msm_batches_rejected: int = 0
+    msm_bisects: int = 0
+    msm_bisect_depth_max: int = 0
+    msm_fallback_sigs: int = 0
+    msm_canary_failures: int = 0
+    msm_host_s: float = 0.0
+    msm_device_s: float = 0.0
+    msm_canary_s: float = 0.0
     buckets_used: dict = field(default_factory=dict)
 
     def snapshot(self) -> dict:
@@ -613,7 +656,7 @@ def _verify_cpu_ecdsa(records: Sequence) -> np.ndarray:
 
 def _schnorr_oracle(records: Sequence) -> np.ndarray:
     """Per-lane Schnorr verify on the Python-int oracle — the accept/
-    reject reference (the MSM batch check is a later slice of the port)."""
+    reject reference every MSM verdict must match."""
     STATS.schnorr_cpu_sigs += len(records)
     return np.array(
         [
@@ -670,14 +713,277 @@ def _kat_records() -> tuple:
     return _KAT
 
 
+# ---- Schnorr MSM batch verification ----------------------------------------
+#
+# The kernel (ops/secp256k1.schnorr_msm_is_infinity, csrc/msm.cu) answers
+# ONE bit per batch: does sum a_i R_i + sum (a_i e_i) P_i + ((n - sum a_i
+# s_i) mod n) G land on the point at infinity. Trust around that bit, as
+# the reference's:
+#
+#   accept side — a CANARY gate per verify session: the kernel must
+#     accept a known-good batch AND reject that batch with a known-bad
+#     sig appended before any real verdict is trusted. With the canary
+#     green, a false accept needs the 2^-128 coefficient collision.
+#   reject side — never the device's alone: a rejected batch BISECTS with
+#     fresh coefficients per sub-batch; sub-batches of MSM_MIN_BATCH or
+#     fewer settle on the per-lane Python oracle, so every False the
+#     caller sees was produced by the oracle.
+#   host prechecks — r/s range and the R = lift_x(r) existence test run
+#     on the host and pre-reject without device work; the oracle rejects
+#     exactly those (schnorr_verify accepts only when R'.x == r for a
+#     finite R', which forces r^3 + 7 to be a residue, and its jacobi
+#     gate matches lift_x's root).
+
+_SCHNORR_KAT = None
+
+
+def _schnorr_kat_records() -> tuple:
+    """Known-answer Schnorr records for the MSM canary batches: one
+    signature that MUST verify and one that MUST NOT (same sig, shifted
+    message). Generated once from the Python-int oracle."""
+    global _SCHNORR_KAT
+    if _SCHNORR_KAT is None:
+        import hashlib
+
+        from ..script.interpreter import SigCheckRecord
+
+        d = 0x5A7D1C9E3B8F6A2D4C1E8B7F9A3D5C6E8F1A2B4D6C8E9F1B3A5C7E9D2B4F6A8C
+        d %= oracle.N
+        e = int.from_bytes(
+            hashlib.sha256(b"bcp-msm-batch-kat").digest(), "big"
+        ) % oracle.N
+        r, s = oracle.schnorr_sign(d, e)
+        pub = oracle.point_mul(d, oracle.G)
+        good = SigCheckRecord(pub, r, s, e, algo="schnorr")
+        bad = SigCheckRecord(pub, r, s, (e + 1) % oracle.N, algo="schnorr")
+        _SCHNORR_KAT = (good, bad)
+    return _SCHNORR_KAT
+
+
+def _msm_rng() -> random.Random:
+    """Coefficient RNG for one verify session. Security rests on the
+    coefficients being unpredictable to whoever crafted the signatures;
+    os.urandom seeds each session. BCP_MSM_SEED pins the stream for
+    deterministic drills and tests (never set in production)."""
+    seed = os.environ.get("BCP_MSM_SEED")
+    if seed is not None:
+        return random.Random(int(seed, 0))
+    return random.Random(int.from_bytes(os.urandom(16), "big"))
+
+
+def _schnorr_precheck(rec):
+    """Host-side pre-reject + R lift: the affine R = lift_x(r) for a
+    structurally admissible record, None where the oracle is guaranteed
+    to reject (range violation, unliftable r, missing pubkey)."""
+    if rec.pubkey is None:
+        return None
+    if not (0 <= rec.r < oracle.P and 0 <= rec.s < oracle.N):
+        return None
+    return oracle.schnorr_lift_x(rec.r)
+
+
+def _msm_bucket_for(m: int) -> int:
+    for b in _MSM_BUCKETS:
+        if m <= b:
+            return b
+    raise ValueError(f"MSM term count {m} exceeds the bucket ladder")
+
+
+def _msm_pack(terms, bucket: int):
+    """(x, y, scalar) Python-int terms -> the MSM kernel's byte matrices,
+    padded to ``bucket`` with infinity-flagged zero-scalar lanes (they add
+    nothing by construction)."""
+    m = len(terms)
+    xm = np.zeros((bucket, 32), np.uint8)
+    ym = np.zeros((bucket, 32), np.uint8)
+    km = np.zeros((bucket, 32), np.uint8)
+    inf8 = np.ones(bucket, np.uint8)
+    xm[:m] = np.frombuffer(
+        b"".join(x.to_bytes(32, "big") for x, _, _ in terms),
+        np.uint8).reshape(m, 32)
+    ym[:m] = np.frombuffer(
+        b"".join(y.to_bytes(32, "big") for _, y, _ in terms),
+        np.uint8).reshape(m, 32)
+    km[:m] = np.frombuffer(
+        b"".join(k.to_bytes(32, "big") for _, _, k in terms),
+        np.uint8).reshape(m, 32)
+    inf8[:m] = 0
+    return xm, ym, inf8, km
+
+
+def _msm_device_check(pairs, rng: random.Random) -> bool:
+    """ONE batch-equation check on the device: ``pairs`` is a list of
+    (record, lifted_R) with every record already through
+    _schnorr_precheck. Draws FRESH random coefficients (bisection calls
+    this per sub-batch — reusing coefficients across splits would let a
+    crafted pair of forgeries cancel in one half). Returns the batch
+    verdict. With CUDA selected and no card it raises KernelUnavailable.
+    Its host work, kernel call and (for the canary batches) whole time
+    are added to STATS.msm_host_s, msm_device_s and msm_canary_s."""
+    from . import secp256k1 as dev
+
+    INJECTOR.on_call(MSM_SITE)
+    require_device("the Schnorr MSM kernel")
+    t0 = time.monotonic()
+    s_acc = 0
+    terms = []
+    for i, (rec, lift) in enumerate(pairs):
+        # a_0 = 1 is safe (the adversary can't anticipate which sig lands
+        # first in a sub-batch) and saves one 128-bit scalar ladder
+        a = 1 if i == 0 else rng.getrandbits(128) | 1
+        e = oracle.schnorr_challenge(rec.r, rec.pubkey, rec.msg_hash)
+        s_acc = (s_acc + a * rec.s) % oracle.N
+        terms.append((lift[0], lift[1], a))
+        terms.append((rec.pubkey[0], rec.pubkey[1], (a * e) % oracle.N))
+    terms.append((oracle.GX, oracle.GY, (oracle.N - s_acc) % oracle.N))
+    bucket = _msm_bucket_for(len(terms))
+    with dw.phase("ecdsa", "pack"):
+        arrays = _msm_pack(terms, bucket)
+    t1 = time.monotonic()
+    out = _watched_kernel(_PW_MSM, bucket, arrays,
+                          dev.schnorr_msm_is_infinity, split=None)
+    t2 = time.monotonic()
+    STATS.msm_host_s += t1 - t0
+    STATS.msm_device_s += t2 - t1
+    if _SCHNORR_KAT is not None and pairs[0][0] is _SCHNORR_KAT[0]:
+        STATS.msm_canary_s += t2 - t0
+    STATS.msm_dispatches += 1
+    ok = bool(np.asarray(out)[0])
+    if INJECTOR.should_poison(MSM_SITE):
+        ok = not ok
+    return ok
+
+
+def _msm_verify_records(records: Sequence) -> np.ndarray:
+    """Verdicts for a pure-Schnorr batch via the MSM batch check +
+    bisection. Byte-identical to the per-lane oracle: pre-rejected lanes
+    are oracle-guaranteed False, rejected batches funnel to the oracle,
+    and accepted batches are wrong only on a 2^-128 coefficient
+    collision (with the canary proving the kernel can tell good from bad
+    at all). Raises on a device or canary failure — _dispatch_msm owns
+    the supervision."""
+    n = len(records)
+    out = np.zeros(n, bool)
+    lifts = [_schnorr_precheck(rec) for rec in records]
+    live = [i for i in range(n) if lifts[i] is not None]
+    if not live:
+        return out
+    rng = _msm_rng()
+
+    # canary gate (see section comment): both polarities must be right
+    # before any real verdict from this session is trusted
+    kg, kb = _schnorr_kat_records()
+    kgl = _schnorr_precheck(kg)
+    kbl = _schnorr_precheck(kb)
+    if (not _msm_device_check([(kg, kgl)], rng)
+            or _msm_device_check([(kg, kgl), (kb, kbl)], rng)):
+        STATS.msm_canary_failures += 1
+        STATS.kat_failures += 1
+        raise PoisonedOutput("ecdsa msm canary batches wrong")
+
+    depth_max = 0
+
+    def solve(idxs, depth: int) -> None:
+        nonlocal depth_max
+        depth_max = max(depth_max, depth)
+        if len(idxs) <= MSM_MIN_BATCH:
+            out[idxs] = _schnorr_oracle([records[i] for i in idxs])
+            return
+        if _msm_device_check([(records[i], lifts[i]) for i in idxs], rng):
+            out[idxs] = True
+            STATS.msm_batches_accepted += 1
+            return
+        STATS.msm_batches_rejected += 1
+        STATS.msm_bisects += 1
+        mid = len(idxs) // 2
+        solve(idxs[:mid], depth + 1)
+        solve(idxs[mid:], depth + 1)
+
+    # chunk so M = 2n+1 stays inside the bucket ladder; each chunk is an
+    # independent batch equation
+    for s in range(0, len(live), MSM_MAX_RECORDS):
+        solve(live[s:s + MSM_MAX_RECORDS], 0)
+    STATS.msm_bisect_depth_max = max(STATS.msm_bisect_depth_max, depth_max)
+    return out
+
+
+def _raise_unless_msm_injected(e: Exception, poisoned: int) -> None:
+    """The MSM rung hands a batch to the per-lane oracle only for a fault
+    the harness injected: an InjectedFault (at ecdsa_msm or ecdsa), or a
+    canary trip in an attempt whose verdicts poison-output flipped (the
+    injector's ecdsa_msm poison count has moved past ``poisoned``, its
+    value when the attempt began). Programming errors and a missing
+    kernel re-raise as they are; anything else — a CUDA error, a failed
+    launch, a canary trip nobody injected — raises KernelUnavailable."""
+    if (isinstance(e, PoisonedOutput)
+            and INJECTOR.poisoned.get(MSM_SITE, 0) > poisoned):
+        return
+    _raise_unless_injected(e, "the Schnorr MSM kernel (msm_run)")
+
+
+def _dispatch_msm(records: Sequence, br) -> Optional[BatchHandle]:
+    """Supervised MSM dispatch for a pure-Schnorr record list. EAGER
+    (synchronous settle): the bisection ladder is verdict-driven, so the
+    returned handle already carries the final verdicts. Returns None
+    when every attempt failed by an injected fault (the caller owns the
+    per-lane oracle); any other failure raises (_raise_unless_msm_injected)
+    — the reference retries and then falls back for every failure."""
+    boff = Backoff(base=br.cfg.backoff_base, maximum=1.0)
+    last: Optional[BaseException] = None
+    for attempt in range(br.cfg.retries + 1):
+        try:
+            poisoned = INJECTOR.poisoned.get(MSM_SITE, 0)
+            INJECTOR.on_call("ecdsa")
+            out = _msm_verify_records(records)
+            br.record_success()
+            return BatchHandle(len(records), cpu_ok=out)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except (NameError, AttributeError, UnboundLocalError):
+            raise  # programming errors must not degrade silently
+        except Exception as e:  # noqa: BLE001 — supervised boundary
+            _raise_unless_msm_injected(e, poisoned)
+            last = e
+            if attempt < br.cfg.retries:
+                time.sleep(boff.next())
+    br.record_failure(last)
+    br.note_fallback(len(records))
+    STATS.msm_fallback_sigs += len(records)
+    log_printf("schnorr msm dispatch failed (%s: %s) — per-lane oracle "
+               "fallback for %d sig(s)", type(last).__name__,
+               str(last)[:120], len(records))
+    return None
+
+
 def _dispatch_schnorr(records: Sequence, backend: str,
                       kernel: str | None) -> "BatchHandle":
-    """Pure-Schnorr record list: the per-lane oracle (the reference's
-    route whenever the msm kernel is not selected; msm is a later slice
-    of the port). The per-lane path IS the reference engine — no
-    KAT/confirm layer needed."""
+    """Dispatch a pure-Schnorr record list: the MSM batch check when the
+    msm kernel is selected and a device is worth dispatching to, else
+    the per-lane oracle (the reference engine). An open ecdsa breaker
+    sends the batch to the oracle only while a fault is armed at ecdsa or
+    ecdsa_msm; otherwise it raises KernelUnavailable."""
     n = len(records)
     STATS.schnorr_sigs += n
+    kern = kernel if kernel in ECDSA_KERNELS else active_kernel()
+    use_device = kern == "msm" and (
+        backend == "device"
+        or (backend == "auto" and n >= CPU_FLOOR and _device_available())
+    )
+    if use_device:
+        br = dispatch.breaker("ecdsa")
+        if br.allow():
+            handle = _dispatch_msm(records, br)
+            if handle is not None:
+                return handle
+            STATS.fault_fallback_sigs += n
+        else:
+            if not (INJECTOR.armed_for("ecdsa")
+                    or INJECTOR.armed_for(MSM_SITE)):
+                raise KernelUnavailable(
+                    "the ecdsa breaker is open and no fault is injected "
+                    f"at ecdsa or {MSM_SITE}: {br.snapshot()}")
+            br.note_fallback(n)
+            STATS.fault_fallback_sigs += n
     STATS.cpu_fallback_sigs += n
     return BatchHandle(n, cpu_ok=_schnorr_oracle(records))
 
@@ -867,8 +1173,11 @@ def dispatch_batch(records: Sequence, backend: str = "auto",
 
     backend: "auto" (device if available and batch >= CPU_FLOOR),
     "device" (force), "cpu" (force oracle — synchronous).
-    kernel: per-call override of the device verify kernel ("glv" or "w4");
-    None uses active_kernel() (the -ecdsakernel process default).
+    kernel: per-call override of the device verify kernel ("glv", "w4"
+    or "msm"); None uses active_kernel() (the -ecdsakernel process
+    default). "msm" sends the Schnorr lanes to the Pippenger batch check
+    (eager: the handle carries the final verdicts); ECDSA lanes under it
+    take the GLV ladder.
 
     The device leg is supervised (ops/dispatch): the ecdsa circuit breaker
     gates it, bounded retries absorb transient dispatch errors, and a
@@ -937,8 +1246,12 @@ def _dispatch_device(records: Sequence, br,
     boff = Backoff(base=br.cfg.backoff_base, maximum=1.0)
     last: Optional[BaseException] = None
     if kernel is not None and kernel not in ECDSA_KERNELS:
-        set_kernel(kernel)  # raises, naming the later slice
+        set_kernel(kernel)  # raises: an unknown kernel
     kern = kernel or active_kernel()
+    if kern == "msm":
+        # the MSM batch equation verifies Schnorr sigs only; ECDSA lanes
+        # under -ecdsakernel=msm take the GLV ladder
+        kern = "glv"
     ctx = tm.trace_context()
     for attempt in range(br.cfg.retries + 1):
         try:
@@ -1441,8 +1754,8 @@ def _dispatch_packed_device(pub, rs, msg, rn, wrap, n: int,
                             br) -> Optional[BatchHandle]:
     """Supervised packed enqueue (retries + KAT lanes) down the ladder of
     _dispatch_device (GLV device split -> GLV host split -> the w4 byte
-    entry) under the process default kernel; None when every attempt
-    failed."""
+    entry) under the process default kernel (GLV under "msm": the blobs
+    are ECDSA); None when every attempt failed."""
     from .. import native
     from . import secp256k1 as dev
 
@@ -1499,7 +1812,7 @@ def _dispatch_packed_device(pub, rs, msg, rn, wrap, n: int,
 
             device_ok = degen = None
             poisoned = False
-            if active_kernel() == "glv":
+            if active_kernel() in ("glv", "msm"):
                 device_ok, degen, poisoned = _glv_ladder(
                     bucket, byte_arrays, lambda: _glv_pack_parts(
                         u1, u2, pub2[:, :32], pub2[:, 32:], rs2[:, :32],

@@ -1,6 +1,7 @@
-"""Batch secp256k1 ECDSA verification: the w4 rung and the GLV rungs.
+"""Batch secp256k1 verification: the w4 rung, the GLV rungs and the
+Schnorr batch check (a Pippenger MSM).
 
-Port of the w4 and GLV parts of the reference's ops/secp256k1.py. Two
+Port of the w4, GLV and MSM parts of the reference's ops/secp256k1.py. Two
 layers:
 
 - **The kernels** (CUDA C++ for sm_90a, built with nvcc at first use and
@@ -25,7 +26,9 @@ layers:
   ``csrc/secp256k1_pair.cuh`` (a team of pairs of threads; each multiply
   spread over a pair, half its rows each), with the same lane
   (``csrc/glv_lane.cuh``); ``GLV_LAUNCH`` picks the design, team and
-  block per bucket.
+  block per bucket. ``csrc/msm.cu`` replaces the plain-XLA MSM programs
+  ``_msm_program`` (:1967) and ``_msm_partial_program`` (:1977) through
+  the entry ``msm_run`` (see its section below).
 - **The plain versions**: the same verifies in PyTorch tensor ops, used
   for tensors on the CPU (the tests) and as the yardstick the kernels are
   held against on the card. They carry field elements as (..., 16) int64
@@ -75,7 +78,8 @@ JAX_N_LIMBS = 20
 # wrapper adds one where it launches its kernel, and nowhere else (the
 # plain version does not count).
 LAUNCHES = {"w4_verify_bytes": 0, "w4_verify_planes": 0,
-            "glv_dev_verify": 0, "glv_verify": 0, "glv_decompose": 0}
+            "glv_dev_verify": 0, "glv_verify": 0, "glv_decompose": 0,
+            "msm": 0, "msm_partial": 0}
 LAUNCH_SHAPES: dict = {}
 
 
@@ -1244,3 +1248,277 @@ def glv_decompose_device_batch(km):
         LAUNCH_SHAPES[("glv_decompose", n)] = \
             LAUNCH_SHAPES.get(("glv_decompose", n), 0) + 1
     return m1, n1, m2, n2
+
+
+# ---- Schnorr MSM: the Pippenger batch check (K9) ----------------------------
+#
+# Port of the MSM part of the reference's ops/secp256k1.py (_msm_accumulate,
+# _msm_program, _msm_partial_program and their host entries). The batch
+# check asks whether sum_j k_j Q_j over the packed terms is the point at
+# infinity. The schedule, shared by the kernel (csrc/msm.cu) and the plain
+# version below: K = max(1, min(128, M / 32)) streams of M / K terms; lane
+# 64 k + w of stream k keeps 16 buckets and adds each of its stream's terms
+# into bucket (the w-th 4-bit window of k_j, MSB first) by a complete
+# mixed add (digit 0 and flagged terms add nothing); the streams merge
+# pairwise (log2 K complete full adds, the lower stream first); each
+# window's buckets reduce by suffix sums (b = 15 .. 1: running += B_b,
+# total += running), and a Horner pass over the 64 window sums (4
+# doublings, then a full add) gives the sum. Every add is complete: an
+# adversary controls the terms, so P == Q and P == -Q do occur.
+
+# more streams: wider bucket walks, more merge levels; M / 32 keeps every
+# stream at least 32 terms deep
+_MSM_STREAM_CAP = 128
+# the 25 words of csrc/msm.cu's result: canonical X, Y, Z (8 little-endian
+# words each; X = Y = 1, Z = 0 at infinity) and the infinity flag
+MSM_WORDS = 25
+
+
+def msm_streams(M: int) -> int:
+    """The stream count K of an M-term MSM."""
+    return max(1, min(_MSM_STREAM_CAP, M // 32))
+
+
+def _inf_points(n: int, device) -> tuple:
+    one = _consts(device)["one"].expand(n, N_LIMBS)
+    return (one, one, torch.zeros(n, N_LIMBS, dtype=torch.int64,
+                                  device=device),
+            torch.ones(n, dtype=torch.bool, device=device))
+
+
+def _same_opposite(H, R, finite) -> tuple:
+    """(P == Q, P == -Q) lane masks of a complete add between finite
+    points: H == 0 and R == 0, or H == 0 and R != 0 (exact mod p; one
+    zero test over both)."""
+    zero = f_is_zero(torch.stack([H, R]))
+    return (zero[0] & zero[1] & finite, zero[0] & ~zero[1] & finite)
+
+
+def _with_doubles(same, pt: tuple, out: tuple) -> tuple:
+    """out, with double(P) on the lanes where P == Q (the double is
+    computed only when some lane needs it)."""
+    if not bool(same.any()):
+        return out
+    return pt_select(same, pt_double(pt), out)
+
+
+def pt_add_mixed(pt: tuple, qx, qy, q_inf) -> tuple:
+    """Complete mixed add P (Jacobian) + Q (affine), the reference's
+    pt_add_mixed: P = inf -> Q; Q = inf -> P; P == Q -> double(P);
+    P == -Q -> infinity; else madd (Z1Z1 = Z^2, U2 = qx Z1Z1, S2 = qy Z
+    Z1Z1, H = U2 - X, R = S2 - Y, X3 = R^2 - HHH - 2V, Y3 = R (V - X3) -
+    Y HHH, Z3 = Z H). The zero tests on H and R are exact mod p."""
+    X, Y, Z, inf = pt
+    Z1Z1 = f_sqr(Z)
+    U2 = f_mul(qx, Z1Z1)
+    S2 = f_mul(qy, f_mul(Z, Z1Z1))
+    H = f_carry_sub(U2, X)
+    R = f_carry_sub(S2, Y)
+    same, opposite = _same_opposite(H, R, ~inf & ~q_inf)
+    HH = f_sqr(H)
+    HHH = f_mul(H, HH)
+    V = f_mul(X, HH)
+    X3 = f_carry_sub(f_sqr(R), f_add(HHH, f_add(V, V)))
+    Y3 = f_carry_sub(f_mul(R, f_sub(V, X3)), f_mul(Y, HHH))
+    Z3 = f_mul(Z, H)
+    out = _with_doubles(same, pt, (X3, Y3, Z3, opposite))
+    one = _consts(X.device)["one"].expand_as(X)
+    out = pt_select(inf, (qx.expand_as(X), qy.expand_as(X), one, q_inf), out)
+    return pt_select(q_inf & ~inf, pt, out)
+
+
+def pt_add_full(pt: tuple, q: tuple) -> tuple:
+    """Complete Jacobian add P + Q, the reference's pt_add_full (the
+    add-2007-bl core of _pt_add_full_cheap_u with the same case analysis
+    as pt_add_mixed)."""
+    X1, Y1, Z1, inf1 = pt
+    X2, Y2, Z2, inf2 = q
+    Z1Z1 = f_sqr(Z1)
+    Z2Z2 = f_sqr(Z2)
+    U1 = f_mul(X1, Z2Z2)
+    U2 = f_mul(X2, Z1Z1)
+    S1 = f_mul(Y1, f_mul(Z2, Z2Z2))
+    S2 = f_mul(Y2, f_mul(Z1, Z1Z1))
+    H = f_carry_sub(U2, U1)
+    R = f_carry_sub(S2, S1)
+    same, opposite = _same_opposite(H, R, ~inf1 & ~inf2)
+    HH = f_sqr(H)
+    HHH = f_mul(H, HH)
+    V = f_mul(U1, HH)
+    X3 = f_carry_sub(f_sqr(R), f_add(HHH, f_add(V, V)))
+    Y3 = f_carry_sub(f_mul(R, f_sub(V, X3)), f_mul(S1, HHH))
+    Z3 = f_mul(f_mul(Z1, Z2), H)
+    out = _with_doubles(same, pt, (X3, Y3, Z3, opposite))
+    out = pt_select(inf1, q, out)
+    return pt_select(inf2 & ~inf1, pt, out)
+
+
+def msm_digits(km) -> torch.Tensor:
+    """(M, 32) uint8 big-endian scalars -> (K 64, M / K) int64 digits:
+    row 64 k + w holds the w-th 4-bit window (MSB first) of stream k's
+    scalars in order (the reference's stream-major layout)."""
+    M = km.shape[0]
+    K = msm_streams(M)
+    digits = _expand_nibble_windows(km).reshape(64, K, M // K)
+    return digits.permute(1, 0, 2).reshape(K * 64, M // K)
+
+
+def msm_buckets_plain(xm, ym, inf8, km) -> tuple:
+    """The bucket walk (csrc/msm.cu's msm_buckets): (M, 32) uint8
+    big-endian xm, ym, km and (M,) inf8 -> the buckets (X, Y, Z) as
+    (K 64, 16, 16) limbs and inf (K 64, 16), lane 64 k + w, bucket d."""
+    M = xm.shape[0]
+    K = msm_streams(M)
+    steps, lanes, dev = M // K, K * 64, xm.device
+    xs = _expand_limb_cols(xm).reshape(K, steps, N_LIMBS)
+    ys = _expand_limb_cols(ym).reshape(K, steps, N_LIMBS)
+    p_inf = (inf8 != 0).reshape(K, steps)
+    digits = msm_digits(km)
+    one = _consts(dev)["one"]
+    bX = one.expand(lanes, 16, N_LIMBS).clone()
+    bY = bX.clone()
+    bZ = torch.zeros_like(bX)
+    binf = torch.ones(lanes, 16, dtype=torch.bool, device=dev)
+    for t in range(steps):
+        d = digits[:, t]
+        qi = p_inf[:, t].repeat_interleave(64)
+        hit = (d > 0) & ~qi
+        rows = hit.nonzero().squeeze(1)
+        if rows.numel() == 0:
+            continue
+        cols = d[rows]
+        k = rows // 64
+        new = pt_add_mixed(
+            (bX[rows, cols], bY[rows, cols], bZ[rows, cols],
+             binf[rows, cols]),
+            xs[k, t], ys[k, t], torch.zeros_like(qi[rows]))
+        bX[rows, cols], bY[rows, cols], bZ[rows, cols] = new[:3]
+        binf[rows, cols] = new[3]
+    return bX, bY, bZ, binf
+
+
+def msm_merge_plain(buckets: tuple, K: int) -> tuple:
+    """The pairwise stream merge (csrc/msm.cu's msm_merge levels): the
+    buckets of msm_buckets_plain -> the 64 windows' buckets of the sum,
+    (64, 16, 16) limbs and (64, 16) inf."""
+    cur = tuple(t.reshape(K, 1024, *t.shape[2:]) for t in buckets)
+    k = K
+    while k > 1:
+        half = k // 2
+        lo = tuple(t[:half].reshape(half * 1024, *t.shape[2:]) for t in cur)
+        hi = tuple(t[half:].reshape(half * 1024, *t.shape[2:]) for t in cur)
+        cur = tuple(t.reshape(half, 1024, *t.shape[1:])
+                    for t in pt_add_full(lo, hi))
+        k = half
+    return tuple(t.reshape(64, 16, *t.shape[2:]) for t in cur)
+
+
+def msm_tail_plain(windows: tuple) -> tuple:
+    """The bucket reduction and the Horner pass (csrc/msm.cu's msm_tail):
+    the windows' buckets -> the sum as a width-1 point."""
+    X, Y, Z, inf = windows
+    dev = X.device
+    running = total = _inf_points(64, dev)
+    for b in range(15, 0, -1):
+        running = pt_add_full(running, (X[:, b], Y[:, b], Z[:, b],
+                                        inf[:, b]))
+        total = pt_add_full(total, running)
+    acc = _inf_points(1, dev)
+    for w in range(64):
+        for _ in range(4):
+            acc = pt_double(acc)
+        acc = pt_add_full(acc, tuple(t[w:w + 1] for t in total))
+    return acc
+
+
+def msm_accumulate_plain(xm, ym, inf8, km) -> tuple:
+    """The plain MSM on the kernel's schedule: the Jacobian sum
+    (X, Y, Z, inf) at width 1 (limbs; coordinates meaningless under
+    inf)."""
+    K = msm_streams(xm.shape[0])
+    return msm_tail_plain(msm_merge_plain(
+        msm_buckets_plain(xm, ym, inf8, km), K))
+
+
+def _point_result(pt: tuple) -> tuple:
+    """A width-1 point -> ((X, Y, Z) canonical ints, inf), with the
+    kernel's (1, 1, 0) at infinity."""
+    if bool(pt[3][0]):
+        return (1, 1, 0), True
+    return tuple(from_limbs(c)[0] % P for c in pt[:3]), False
+
+
+def _words_result(words: torch.Tensor) -> tuple:
+    """csrc/msm.cu's 25 result words -> ((X, Y, Z) ints, inf)."""
+    w = [int(v) & 0xFFFFFFFF for v in words.to("cpu").tolist()]
+    coords = tuple(sum(w[8 * c + i] << (32 * i) for i in range(8))
+                   for c in range(3))
+    return coords, bool(w[24])
+
+
+def _msm_tensors(xm, ym, inf8, km) -> list:
+    """The four inputs as tensors on one device (numpy arrays go to the
+    port's device), checked: (M, 32) uint8 xm, ym, km; (M,) uint8 or
+    bool inf8; M a multiple of the stream count."""
+    ts = [a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(np.asarray(a, np.uint8))).to(cuda_build.device())
+        for a in (xm, ym, inf8, km)]
+    M = ts[0].shape[0]
+    dev = ts[0].device
+    _check([ts[0], ts[1], ts[3]], dev, [(M, 32)] * 3, (torch.uint8,))
+    _check([ts[2]], dev, [(M,)], (torch.uint8, torch.bool))
+    if M < 1 or M % msm_streams(M):
+        raise ValueError(f"M={M} is not a multiple of its stream count "
+                         f"{msm_streams(M)}")
+    return ts
+
+
+def _msm_launch(name: str, ts: list) -> torch.Tensor:
+    """Launch csrc/msm.cu's whole MSM (entry msm_run: the bucket walk, the
+    merge levels, the tail) on the current stream; returns its 25 result
+    words (int32) on the card. The bucket scratch is allocated here."""
+    xm, ym, inf8, km = ts
+    M = xm.shape[0]
+    K = msm_streams(M)
+    dev = xm.device
+    fn = cuda_build.entry("msm_run", [ctypes.c_void_p] * 6
+                          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    bk = torch.empty(16 * MSM_WORDS * K * 64, dtype=torch.int32, device=dev)
+    out = torch.empty(MSM_WORDS, dtype=torch.int32, device=dev)
+    args = [xm.contiguous(), ym.contiguous(),
+            inf8.to(torch.uint8).contiguous(), km.contiguous()]
+    rc = fn(*[t.data_ptr() for t in args], bk.data_ptr(), out.data_ptr(),
+            M, K, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch("msm_run", rc)
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, M)] = LAUNCH_SHAPES.get((name, M), 0) + 1
+    return out
+
+
+def _msm_result(name: str, xm, ym, inf8, km) -> tuple:
+    ts = _msm_tensors(xm, ym, inf8, km)
+    dev = ts[0].device
+    if dev.type == "cpu":
+        return _point_result(msm_accumulate_plain(*ts))
+    if dev.type != "cuda":
+        raise KernelUnavailable(f"no MSM kernel for device {dev}")
+    return _words_result(_msm_launch(name, ts))
+
+
+def schnorr_msm_is_infinity(xm, ym, inf8, km) -> np.ndarray:
+    """The batch check's host entry (the reference's, K9): is sum_j k_j Q_j
+    the point at infinity, as a (1,) uint32 numpy array (1 = the batch
+    accepts). xm, ym, km: (M, 32) uint8 big-endian affine terms and
+    scalars (< n); inf8: (M,) flags of terms that add nothing; tensors
+    (CUDA: the kernel; CPU: the plain version) or numpy arrays (moved to
+    the port's device). Waits for the card."""
+    _coords, inf = _msm_result("msm", xm, ym, inf8, km)
+    return np.array([1 if inf else 0], np.uint32)
+
+
+def msm_partial_point(xm, ym, inf8, km) -> tuple:
+    """One shard's partial sum (the reference's host entry): ((X, Y, Z)
+    ints mod p, inf bool), the Jacobian triple of the kernel's schedule,
+    canonical, (1, 1, 0) at infinity. Inputs as
+    schnorr_msm_is_infinity's."""
+    return _msm_result("msm_partial", xm, ym, inf8, km)

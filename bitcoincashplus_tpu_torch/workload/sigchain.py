@@ -4,7 +4,11 @@ workload.
 The logic of the reference's tools/gen_sigchain.py (uniform segment),
 built on the port's own modules: a coinbase runway, fan-out transactions
 splitting mature coinbases into many P2PKH outputs, then dense blocks of
-many-input P2PKH spends — every input one ECDSA signature. Blocks go
+many-input P2PKH spends — every input one ECDSA signature, or, with
+``schnorr=True``, one 65-byte BCH Schnorr signature (the 64 bytes of
+``crypto/secp256k1.schnorr_sign`` over the input's forkid sighash, then
+the hashtype byte; the runway and fan-out stay ECDSA, so a dispatch
+mixes both). Blocks go
 through the port's BlockStore (blk?????.dat with netmagic framing), so a
 reader walks them exactly as the node's block-file import does.
 Generation skips script verification (script_verifier=None): blocks are
@@ -13,11 +17,12 @@ valid by construction, and the validation run IS the check.
 Besides the chain it builds two competing blocks on top of the tip, each
 spending ``tip_inputs`` dense outputs (the shape of a small block handed
 to submitblock): a good one, and one with a signature altered inside its
-DER s-value — the encodings stay valid, so that block can only fail at
-signature verification. Both are returned serialized and are not stored.
+DER s-value (a Schnorr chain: a byte inside one signature's s) — the
+encodings stay valid, so that block can only fail at signature
+verification. Both are returned serialized and are not stored.
 
 CLI:  python -m bitcoincashplus_tpu_torch.workload.sigchain --datadir D
-      --sigs 16000
+      --sigs 16000 [--schnorr]
 Emits one JSON line: {"blocks": N, "txs": N, "sigs": N, "bytes": N, ...}.
 """
 
@@ -36,6 +41,7 @@ from ..consensus.merkle import block_merkle_root
 from ..consensus.params import get_block_subsidy, regtest_params
 from ..consensus.pow import compact_to_target
 from ..consensus.tx import COutPoint, CTransaction, CTxIn, CTxOut
+from ..crypto import secp256k1 as oracle
 from ..crypto.hashes import sha256d
 from ..store.blockstore import BlockStore, MemoryBlockStore
 from ..store.chainstatedb import BlockIndexDB, CoinsDB
@@ -43,7 +49,9 @@ from ..store.kvstore import KVStore
 from ..validation.chainstate import ChainstateManager, _script_int
 from ..validation.coins import MemoryCoinsView
 from ..script.interpreter import DeferringSignatureChecker, VerifyScript
-from ..script.sighash import SighashCache
+from ..script.script import push_data_raw
+from ..script.sighash import (SIGHASH_ALL, SIGHASH_FORKID, SighashCache,
+                              signature_hash)
 from ..validation.scriptcheck import BlockScriptVerifier, block_script_flags
 from ..wallet.keys import CKey
 from ..wallet.signing import sign_transaction
@@ -100,15 +108,107 @@ def _make_block(prev_hash: bytes, height: int, block_time: int, bits: int,
     return CBlock(_mine(header, target), vtx)
 
 
+# G's fixed-base comb for the Schnorr signer: row i holds j 256^i G,
+# j = 1 .. 255 (affine; index 0 unused), built once per process
+_G_COMB: list = []
+
+
+def _g_comb() -> list:
+    if not _G_COMB:
+        base = oracle.G
+        for _ in range(32):
+            row = [None, base]
+            for _j in range(2, 256):
+                row.append(oracle.point_add(row[-1], base))
+            _G_COMB.append(row)
+            base = oracle.point_add(row[-1], base)  # 256 base
+    return _G_COMB
+
+
+def _jac_add_affine(acc, q):
+    """Jacobian acc (None = infinity) + affine q, Python ints mod p."""
+    if acc is None:
+        return (q[0], q[1], 1)
+    P = oracle.P
+    X, Y, Z = acc
+    zz = Z * Z % P
+    H = (q[0] * zz - X) % P
+    R = (q[1] * zz * Z - Y) % P
+    if H == 0:
+        if R == 0:  # acc == q: double q
+            x3, y3 = oracle.point_double(q)
+            return (x3, y3, 1)
+        return None
+    HH = H * H % P
+    HHH = H * HH % P
+    V = X * HH % P
+    X3 = (R * R - HHH - 2 * V) % P
+    return (X3, (R * (V - X3) - Y * HHH) % P, Z * H % P)
+
+
+class SchnorrSigner:
+    """``crypto/secp256k1.schnorr_sign(secret, e)`` for one key, with the
+    same RFC6979 nonce, the same R and the same (r, s), at a fraction of
+    its cost: k G from the fixed-base comb in Jacobian coordinates (one
+    inversion), and the public key computed once."""
+
+    def __init__(self, secret: int):
+        self.secret = secret
+        self.pub = oracle.point_mul(secret, oracle.G)
+        self.comb = _g_comb()
+
+    def sign(self, e: int) -> tuple:
+        k = oracle.rfc6979_nonce(self.secret, e, extra=b"Schnorr+SHA256  ")
+        acc = None
+        for i, d in enumerate(k.to_bytes(32, "little")):
+            if d:
+                acc = _jac_add_affine(acc, self.comb[i][d])
+        X, Y, Z = acc
+        zi = pow(Z, oracle.P - 2, oracle.P)
+        ry = Y * zi * zi * zi % oracle.P
+        if oracle.jacobi(ry) != 1:
+            k = oracle.N - k
+        r = X * zi * zi % oracle.P
+        e2 = oracle.schnorr_challenge(r, self.pub, e)
+        return r, (k + e2 * self.secret) % oracle.N
+
+
+SCHNORR_HASHTYPE = SIGHASH_ALL | SIGHASH_FORKID
+
+
+def sign_schnorr_p2pkh(tx: CTransaction, amounts: list, key: CKey,
+                       signer: SchnorrSigner) -> CTransaction:
+    """Sign every input of ``tx`` (each spending ``key``'s P2PKH output of
+    the given amount) with a 65-byte Schnorr signature:
+    push(r || s || hashtype) push(pubkey)."""
+    spk = key.p2pkh_script()
+    cache = SighashCache(tx)
+    vin = []
+    for i, (txin, amount) in enumerate(zip(tx.vin, amounts)):
+        digest = signature_hash(spk, tx, i, SCHNORR_HASHTYPE, amount,
+                                enable_forkid=True, cache=cache)
+        r, s = signer.sign(int.from_bytes(digest, "big"))
+        sig = (r.to_bytes(32, "big") + s.to_bytes(32, "big")
+               + bytes([SCHNORR_HASHTYPE]))
+        vin.append(CTxIn(txin.prevout,
+                         push_data_raw(sig) + push_data_raw(key.pubkey),
+                         txin.sequence))
+    return CTransaction(tx.version, tuple(vin), tx.vout, tx.locktime)
+
+
 def _tamper_input(tx: CTransaction, i: int) -> CTransaction:
-    """Flip one bit in the middle of input i's DER s-value (P2PKH
-    scriptSig: push(sig || hashtype) push(pubkey))."""
+    """Flip one bit in the middle of input i's s-value (P2PKH scriptSig:
+    push(sig || hashtype) push(pubkey)): inside the DER s, or, for a
+    65-byte Schnorr signature, inside its 32-byte s."""
     ss = bytearray(tx.vin[i].script_sig)
     sig = ss[1:1 + ss[0]]
-    rlen = sig[3]
-    s_off = 1 + 4 + rlen + 2  # scriptSig offset of the first s byte
-    slen = sig[4 + rlen + 1]
-    ss[s_off + slen // 2] ^= 0x01
+    if len(sig) == 65:
+        ss[1 + 32 + 16] ^= 0x01
+    else:
+        rlen = sig[3]
+        s_off = 1 + 4 + rlen + 2  # scriptSig offset of the first s byte
+        slen = sig[4 + rlen + 1]
+        ss[s_off + slen // 2] ^= 0x01
     vin = list(tx.vin)
     vin[i] = CTxIn(vin[i].prevout, bytes(ss), vin[i].sequence)
     return CTransaction(tx.version, tuple(vin), tx.vout, tx.locktime)
@@ -116,10 +216,12 @@ def _tamper_input(tx: CTransaction, i: int) -> CTransaction:
 
 def generate(datadir: str, total_sigs: int, inputs_per_tx: int = 250,
              txs_per_block: int = 8, fan_k: int = 2000,
-             tip_inputs: int = 32, progress=lambda s: None) -> dict:
+             tip_inputs: int = 32, progress=lambda s: None,
+             schnorr: bool = False) -> dict:
     """Write the chain into ``datadir`` (regtest layout) and return its
     summary; ``summary["tampered_tip"]`` and ``summary["good_tip"]`` are
-    the serialized competing tips."""
+    the serialized competing tips. ``schnorr``: the dense spends and both
+    tips carry Schnorr signatures."""
     params = regtest_params()
     net_dir = os.path.join(datadir, "regtest")
     blocks_dir = os.path.join(net_dir, "blocks")
@@ -135,6 +237,7 @@ def generate(datadir: str, total_sigs: int, inputs_per_tx: int = 250,
 
     key = CKey(KEY_SECRET, compressed=True)
     spk = key.p2pkh_script()
+    signer = SchnorrSigner(KEY_SECRET) if schnorr else None
 
     def key_for_id(ident):
         return key if ident in (key.pubkey_hash, key.pubkey) else None
@@ -168,6 +271,9 @@ def generate(datadir: str, total_sigs: int, inputs_per_tx: int = 250,
                       for txid, i, _ in chunk),
             vout=(CTxOut(total_in - FEE, spk),),
         )
+        if signer is not None:
+            return sign_schnorr_p2pkh(unsigned, [v for _, _, v in chunk],
+                                      key, signer)
         return sign_transaction(unsigned, [(spk, v) for _, _, v in chunk],
                                 key_for_id, enable_forkid=True)
 
@@ -347,12 +453,14 @@ def main():
     ap.add_argument("--inputs-per-tx", type=int, default=250)
     ap.add_argument("--txs-per-block", type=int, default=8)
     ap.add_argument("--fan-k", type=int, default=2000)
+    ap.add_argument("--schnorr", action="store_true")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args()
     progress = (lambda s: None) if args.quiet else (
         lambda s: print(f"[sigchain] {s}", file=sys.stderr, flush=True))
     summary = generate(args.datadir, args.sigs, args.inputs_per_tx,
-                       args.txs_per_block, args.fan_k, progress=progress)
+                       args.txs_per_block, args.fan_k, progress=progress,
+                       schnorr=args.schnorr)
     for k in ("tampered_tip", "good_tip"):
         summary[k] = summary[k].hex()
     print(json.dumps(summary))

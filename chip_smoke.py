@@ -7,10 +7,10 @@ NVIDIA card.
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build   — compile each csrc/*.cu (w4_verify.cu, glv_verify.cu,
-             glv_pair.cu, sha256d_sweep.cu, sha256d_batch.cu; the ECDSA
-             kernels share csrc/secp256k1_core.cuh, the GLV pair
-             csrc/glv_lane.cuh) by its own nvcc (sm_90a), all started
-             together, from this
+             glv_pair.cu, sha256d_sweep.cu, sha256d_batch.cu, msm.cu; the
+             ECDSA kernels share csrc/secp256k1_core.cuh, the GLV pair
+             csrc/glv_lane.cuh, the MSM csrc/secp256k1_complete.cuh) by
+             its own nvcc (sm_90a), all started together, from this
              checkout; print the build seconds, ptxas' registers, stack
              frame and spills per kernel, the w4 kernels' SASS local
              loads and stores (LDL / STL: the phase fails on any, or on a
@@ -18,7 +18,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              instances gated the same way, the carry-chain ones
              reported), the sweep kernels' SASS instruction counts
              (cuobjdump) beside the counts taken from their rounds, and
-             the batch kernels' (gated: no local memory).
+             the batch kernels' and the MSM kernels' (gated: no local
+             memory).
 2. ecdsa   — the w4 field core alone (entry w4_field_selftest: fe_mul,
              fe_sqr, fe_add, fe_sub, fe_canon, the zero test and fe_eq on
              FIELD_EDGES x FIELD_EDGES and 4096 seeded random pairs)
@@ -49,6 +50,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              seeded scalars (counts zeroed just before, read just after):
              every lane equal to the Python glv_decompose, the whole equal
              to the plain version.
+2c. msm    — the Schnorr MSM (csrc/msm.cu, K9) at every bucket 64 ..
+             16384 on seeded terms of known discrete logs with a crafted
+             corpus (P == Q and P == -Q in buckets and merges, zero and
+             n - 1 scalars, flagged padding), its sum nonzero and zero:
+             the verdict entry and the partial entry's canonical Jacobian
+             triple equal to the plain version, the affine sum and the
+             verdict to the host's; device time of msm_run and of each
+             launch kind,
+             the plain version's wall, the IMAD bound and the chain floor.
 3. sweeps  — each sweep entry (sweep_h7 at tile 2^20 and at the resident
              loop's 2^16 x 8, sweep_h7_pallas at 64 x 128 lanes x 4096
              tiles, sweep_exact at tile 2^16) against its plain version:
@@ -111,6 +121,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              duplicated tail (bad-txns-duplicate) and one with an altered
              header root (bad-txnmrklroot), each with one host
              confirmation.
+5c. schnorr — dispatch_batch(backend="device", kernel="msm") at 8, 31,
+             127, 2046 and 8190 Schnorr signatures (sigs/s, the MSM
+             time split into host work, kernel calls and canaries;
+             verdicts equal to the oracle's at 8 and 31, whose sigs/s are
+             printed, all True above), one forged lane at 2046 (False at
+             that lane only; bisect depth and counters), the drills at
+             ecdsa_msm (fail-always, poison-output: the oracle serves,
+             verdicts unchanged); then the Schnorr path: an 8,000-signature
+             Schnorr chain (workload/sigchain, 250 inputs a transaction, 8
+             a block) through a ChainstateManager under -ecdsakernel=msm
+             three times at pipeline depth 8 (the 2046-lane LanePacker:
+             batches at bucket 4096), each with its coin digest and best
+             block equal to the same blocks connected without script
+             checks, the tampered tip rejected, MSM launches and the GLV
+             launches of its ECDSA lanes counted, no fallback; 64 lanes
+             drawn at random held against the oracle.
 6. mining  — the mining main path at difficulty 1 (testnet, nBits
              0x1d00ffff: 2^32 hashes a block on average): generate_blocks
              on an on-disk testnet ChainstateManager with the exact engine
@@ -131,7 +157,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6c. gate   — the host compute_merkle_root beside the device leg end to
              end (ops/dispatch.merkle_root) at 128, 512, 1024 and 4096
              leaves.
-7. report  — a JSON line of the twelve kernel entries with launches on
+7. report  — a JSON line of the fourteen kernel entries with launches on
              their paths, errors, times and bounds; the card's name and
              power limit; last, {"ok": true, "device": {...}}.
 
@@ -1124,6 +1150,7 @@ GLV_KERNELS = ("glv_dev_verify_kernel", "glv_verify_kernel",
     + GLV_PAIR_KERNELS
 BATCH_KERNELS = ("sha256d_headers_kernel", "sha256d_pairs_kernel",
                  "merkle_tree_kernel", "sha256d_chain_kernel")
+MSM_KERNELS = ("msm_buckets_kernel", "msm_merge_kernel", "msm_tail_kernel")
 _ALU_ONLY = ("SHF", "SHL", "SHR", "LOP3", "PRMT", "ISETP")
 _NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
             "ATOM", "RED", "S2R", "NOP", "BSSY", "BSYNC", "WARPSYNC", "LDC",
@@ -1132,12 +1159,12 @@ _NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
 
 def _kernel_key(name: str) -> str:
     """A mangled kernel name -> the name of W4_KERNELS, GLV_KERNELS,
-    SWEEP_KERNELS or BATCH_KERNELS it holds, ``kernel<T>`` for a template
+    SWEEP_KERNELS, BATCH_KERNELS or MSM_KERNELS it holds, ``kernel<T>`` for a template
     instance (the name itself when it holds none)."""
     import re
 
     key = next((k for k in W4_KERNELS + GLV_KERNELS + SWEEP_KERNELS
-                + BATCH_KERNELS if k in name), None)
+                + BATCH_KERNELS + MSM_KERNELS if k in name), None)
     t = key and re.search(key + r"IL[ib](\d+)E", name)
     return f"{key}<{t.group(1)}>" if t else (key or name)
 
@@ -2286,6 +2313,457 @@ def merkle_gate_phase(sizes=(128, 512, 1024, 4096), reps: int = 7) -> dict:
         out[n] = row
     return out
 
+# ---- the Schnorr MSM batch check (K9) --------------------------------------
+
+MSM_BUCKETS = (64, 256, 1024, 4096, 8192, 16384)  # ecdsa_batch._MSM_BUCKETS
+MSM_CURVE = (8, 31, 127, 2046, 8190)   # dispatch_batch sizes (Schnorr sigs)
+MSM_CHAIN_SIGS = 8_000         # the Schnorr chain's dense signatures
+MSM_ORACLE_LANES = 64          # chain lanes held against the oracle
+# (squarings, multiplies) of csrc/secp256k1_complete.cuh's generic adds
+# and dependent product levels of each formula at a team of 4 (one round
+# a level): the mixed add 6, the full add 6, the double 3
+SQR_MUL_CMADD, SQR_MUL_CFADD = (3, 8), (4, 12)
+LEVELS_MADD, LEVELS_FADD, LEVELS_DOUBLE = 6, 6, 3
+
+
+def msm_inputs(M: int, seed: int, zero_sum: bool) -> tuple:
+    """An M-term MSM input (numpy (M, 32) uint8 xm, ym, km and (M,) inf8)
+    with its sum, by known discrete logs (Q_j = c_j G, so the sum is
+    (sum k_j c_j) G: one host point multiplication), and the crafted
+    corpus on top of random terms:
+    - stream 0 starts with Q, -Q, Q, Q under one scalar (P == -Q, then
+      infinity + Q, then P == Q in every bucket those digits reach), a
+      zero scalar and n - 1;
+    - the last eighth of every stream is flagged padding with garbage
+      coordinates and nonzero scalars (adds nothing);
+    - stream K/2 is a copy of stream 0 (the first merge level meets P ==
+      Q in every bucket) and, for K >= 4, stream K/2 + 1 the negation of
+      stream 1 (P == -Q in every bucket);
+    - zero_sum: one scalar of stream 0 (and its copy) makes the sum the
+      point at infinity.
+    Returns (xm, ym, inf8, km, want) with want the affine sum or None."""
+    import numpy as np
+
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+
+    rng = random.Random(seed)
+    K = max(1, min(128, M // 32))
+    steps = M // K
+    pad = steps // 8
+    logs = [0] * M
+    scal = [rng.randrange(1, O.N) for _ in range(M)]
+    flag = [False] * M
+    pts = [None] * M
+    c = rng.randrange(1, O.N)
+    pt = O.point_mul(c, O.G)
+    copies = {}
+    if K >= 2:
+        copies[K // 2] = (0, 1)
+    if K >= 4:
+        copies[K // 2 + 1] = (1, -1)
+    for k in range(K):
+        if k in copies:
+            continue
+        for t in range(steps):
+            j = k * steps + t
+            if t >= steps - pad:
+                flag[j] = True
+                continue
+            logs[j], pts[j] = c, pt
+            c, pt = (c + 1) % O.N, O.point_add(pt, O.G)
+    # the crafted head of stream 0
+    k0 = scal[0]
+    neg = (pts[0][0], O.P - pts[0][1])
+    for t, (lg, p, sc) in enumerate(((logs[0], pts[0], k0),
+                                     (O.N - logs[0], neg, k0),
+                                     (logs[0], pts[0], k0),
+                                     (logs[0], pts[0], k0))):
+        logs[t], pts[t], scal[t] = lg, p, sc
+    scal[4], scal[5] = 0, O.N - 1
+    for k, (src, sign) in copies.items():
+        for t in range(steps):
+            j, i = k * steps + t, src * steps + t
+            flag[j], scal[j] = flag[i], scal[i]
+            if not flag[i]:
+                logs[j] = logs[i] if sign > 0 else O.N - logs[i]
+                pts[j] = pts[i] if sign > 0 else (pts[i][0], O.P - pts[i][1])
+    if zero_sum:
+        last = steps - pad - 1
+        twins = [last] + [k * steps + last for k, (src, sign)
+                          in copies.items() if src == 0]
+        rest = sum(scal[j] * logs[j] for j in range(M)
+                   if not flag[j] and j not in twins) % O.N
+        w = len(twins) * logs[last] % O.N
+        scal[last] = (-rest * pow(w, O.N - 2, O.N)) % O.N
+        for j in twins:
+            scal[j] = scal[last]
+    total = sum(scal[j] * logs[j] for j in range(M) if not flag[j]) % O.N
+    want = O.point_mul(total, O.G) if total else None
+    xm = np.zeros((M, 32), np.uint8)
+    ym = np.zeros((M, 32), np.uint8)
+    km = np.zeros((M, 32), np.uint8)
+    for j in range(M):
+        x, y = pts[j] if not flag[j] else (rng.getrandbits(256),
+                                           rng.getrandbits(256))
+        xm[j] = np.frombuffer(x.to_bytes(32, "big"), np.uint8)
+        ym[j] = np.frombuffer(y.to_bytes(32, "big"), np.uint8)
+        km[j] = np.frombuffer(scal[j].to_bytes(32, "big"), np.uint8)
+    return xm, ym, np.asarray(flag, np.uint8), km, want
+
+
+def msm_work(km, inf8) -> dict:
+    """The point operations these inputs need on the kernel's schedule:
+    mixed adds of the bucket walk (a term into an occupied bucket; the
+    first into an empty one is a copy), full adds of the merge levels, the
+    reduction and the Horner pass where both sides are occupied, and the
+    Horner doublings once the sum is occupied; their IMADs; and the
+    longest chain of dependent product levels (a team of 4: one round a
+    level)."""
+    import numpy as np
+
+    M = km.shape[0]
+    K = max(1, min(128, M // 32))
+    steps = M // K
+    dig = np.stack([km >> 4, km & 15], axis=2).reshape(M, 64)
+    live = inf8 == 0
+    hits = np.zeros((K, 64, 16), np.int64)
+    for k in range(K):
+        d = dig[k * steps:(k + 1) * steps][live[k * steps:(k + 1) * steps]]
+        for w in range(64):
+            hits[k, w] += np.bincount(d[:, w], minlength=16)
+    hits[:, :, 0] = 0
+    madd = int(np.maximum(hits - 1, 0).sum())
+    occ = hits > 0
+    full = 0
+    half = K // 2
+    while half >= 1:
+        full += int((occ[:half] & occ[half:2 * half]).sum())
+        occ = occ[:half] | occ[half:2 * half]
+        half //= 2
+    win = []
+    for w in range(64):
+        run = tot = False
+        for b in range(15, 0, -1):
+            full += int(run and occ[0, w, b])
+            run = run or bool(occ[0, w, b])
+            full += int(tot and run)
+            tot = tot or run
+        win.append(tot)
+    dbl = 0
+    acc = False
+    for w in range(64):
+        dbl += 4 * acc
+        full += int(acc and win[w])
+        acc = acc or win[w]
+    sq_m, mu_m = SQR_MUL_CMADD
+    sq_f, mu_f = SQR_MUL_CFADD
+    sq_d, mu_d = SQR_MUL_DOUBLE
+    imads = (madd * (sq_m * IMAD_PER_FSQR + mu_m * IMAD_PER_FMUL)
+             + full * (sq_f * IMAD_PER_FSQR + mu_f * IMAD_PER_FMUL)
+             + dbl * (sq_d * IMAD_PER_FSQR + mu_d * IMAD_PER_FMUL))
+    levels = (int(np.maximum(hits - 1, 0).sum(axis=2).max()) * LEVELS_MADD
+              + (K.bit_length() - 1) * LEVELS_FADD + 30 * LEVELS_FADD
+              + 256 * LEVELS_DOUBLE + 64 * LEVELS_FADD)
+    return {"madd": madd, "full": full, "double": dbl, "imads": imads,
+            "chain_levels": levels}
+
+
+def msm_case(M: int, seed: int, clock_hz: float, fe_cycles: float,
+             reps: int = 20) -> dict:
+    """The MSM kernel at one bucket, against its plain version on the card
+    and the host's sum: for msm_inputs with a nonzero sum and with a zero
+    one, the verdict entry (schnorr_msm_is_infinity) and the partial entry
+    (msm_partial_point: its canonical Jacobian triple equal to the plain
+    version's, its affine point to the host's). Times (device time behind
+    a spin kernel): the C entry msm_run, and each launch kind alone
+    (msm_buckets, the merge levels, msm_tail); the plain version's wall;
+    the IMAD bound of msm_work and its chain floor (dependent levels x one
+    dependent fe_mul's cycles)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    dev = torch.device("cuda")
+    K = S.msm_streams(M)
+    run_args = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    cases, err = [], 0
+    for zero_sum in (False, True):
+        xm, ym, inf8, km, want = msm_inputs(M, seed, zero_sum)
+        ts = [torch.from_numpy(a).to(dev) for a in (xm, ym, inf8, km)]
+        verdict = int(S.schnorr_msm_is_infinity(*ts)[0])
+        (X, Y, Z), inf = S.msm_partial_point(*ts)
+        plain_ms, pt = time_once(lambda: S.msm_accumulate_plain(*ts), dev)
+        (pX, pY, pZ), pinf = S._point_result(pt)
+        if inf:
+            affine = None
+        else:
+            zi = pow(Z, O.P - 2, O.P)
+            affine = (X * zi * zi % O.P, Y * zi * zi * zi % O.P)
+        checks = {
+            "verdict_equal_plain": verdict == int(pinf),
+            "verdict_equal_host": verdict == int(want is None) == int(zero_sum),
+            "partial_equal_plain": ((X, Y, Z), inf) == ((pX, pY, pZ), pinf),
+            "affine_equal_host": affine == want,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"msm M={M} zero_sum={zero_sum}: {checks}")
+        err = max(err, max(abs(a - b) for a, b in zip((X, Y, Z),
+                                                       (pX, pY, pZ))))
+        cases.append({"zero_sum": zero_sum, "plain_ms": plain_ms,
+                      "work": msm_work(km, inf8)})
+    # times on the nonzero-sum input
+    xm, ym, inf8, km, _want = msm_inputs(M, seed, False)
+    ts = [torch.from_numpy(a).to(dev) for a in (xm, ym, inf8, km)]
+    ptrs = [t.data_ptr() for t in ts]
+    bk = torch.empty(16 * S.MSM_WORDS * K * 64, dtype=torch.int32, device=dev)
+    out = torch.empty(S.MSM_WORDS, dtype=torch.int32, device=dev)
+    ms = time_device(entry_call("msm_run", run_args, *ptrs, bk.data_ptr(),
+                                out.data_ptr(), M, K), clock_hz, reps)
+    merge = [entry_call("msm_merge", [ctypes.c_void_p] + [ctypes.c_int] * 2
+                        + [ctypes.c_void_p], bk.data_ptr(), K, half)
+             for half in (K >> i for i in range(1, K.bit_length()))]
+    stages = {
+        "msm_buckets": time_device(entry_call(
+            "msm_buckets", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p], *ptrs, bk.data_ptr(), M, K),
+            clock_hz, reps),
+        "msm_merge": time_device(lambda: [f() for f in merge], clock_hz,
+                                 reps) if merge else 0.0,
+        "msm_tail": time_device(entry_call(
+            "msm_tail", [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_void_p], bk.data_ptr(), K, out.data_ptr()),
+            clock_hz, reps),
+    }
+    work = cases[0]["work"]
+    ops_bound = work["imads"] / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3
+    bytes_bound = (M * (3 * 32 + 1) + 4 * S.MSM_WORDS) / HBM_BYTES_S * 1e3
+    b = {"bound_ms": max(ops_bound, bytes_bound),
+         "bound_by": "operations" if ops_bound >= bytes_bound else "bytes"}
+    return {"M": M, "K": K, "ms": ms, "stages": stages,
+            "plain_ms": cases[0]["plain_ms"], "max_abs_err": err,
+            "work": work, **b,
+            "chain_floor_ms": work["chain_levels"] * fe_cycles / clock_hz
+            * 1e3, "cases": 2 * len(cases)}
+
+
+def schnorr_records(signers: list, n: int, seed: int, forged=()) -> list:
+    """n Schnorr SigCheckRecords over seeded digests, round robin over the
+    signers (workload/sigchain.SchnorrSigner); the lanes in ``forged``
+    carry the digest + 1 (a signature that must fail)."""
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+    from bitcoincashplus_tpu_torch.script.interpreter import SigCheckRecord
+
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        sg = signers[i % len(signers)]
+        e = rng.getrandbits(256) % O.N
+        r, s = sg.sign(e)
+        out.append(SigCheckRecord(sg.pub, r, s,
+                                  (e + 1) % O.N if i in forged else e,
+                                  algo="schnorr"))
+    return out
+
+
+def schnorr_oracle(recs) -> tuple:
+    """(verdicts, wall s) of the per-lane Python-int oracle."""
+    import numpy as np
+
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+
+    t0 = time.perf_counter()
+    got = np.array([O.schnorr_verify(r.pubkey, r.r, r.s, r.msg_hash)
+                    for r in recs])
+    return got, time.perf_counter() - t0
+
+
+MSM_STAT_KEYS = ("schnorr_sigs", "schnorr_cpu_sigs", "msm_dispatches",
+                 "msm_batches_accepted", "msm_batches_rejected",
+                 "msm_bisects", "msm_bisect_depth_max", "msm_fallback_sigs",
+                 "msm_canary_failures", "msm_host_s", "msm_device_s",
+                 "msm_canary_s", "cpu_fallback_sigs", "fault_fallback_sigs",
+                 "kat_failures", "glv_dev_dispatches", "glv_fallbacks",
+                 "glv_dev_fallbacks")
+
+
+def msm_dispatch_phase(signers: list, seed: int = 800,
+                       forged: tuple = (2046, 1000)) -> dict:
+    """dispatch_batch(recs, backend="device", kernel="msm") at each
+    MSM_CURVE size (counts zeroed just before each, read just after):
+    sigs/s, the launches, the split of the MSM time (host, kernel call,
+    canaries); verdicts equal to the oracle's at 8 and 31 (its sigs/s
+    beside), all True above (valid by construction); then one forged
+    signature at lane 1000 of 2046 (``forged``: False at its lane only,
+    the bisect counters); then
+    the drills at ecdsa_msm (fail-always: the batch served by the oracle,
+    no launch; poison-output: the canary trips, then the oracle), each
+    with the oracle's verdicts."""
+    import numpy as np
+
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.util import faults
+
+    rows = {}
+
+    def run(recs):
+        _zero_counts()
+        t0 = time.perf_counter()
+        got = E.dispatch_batch(recs, backend="device", kernel="msm").result()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        st = counts["stats"]
+        return got, wall, counts, {k: st[k] for k in MSM_STAT_KEYS}
+
+    def precheck_s(recs):
+        # the host prechecks (r's lift) of a batch, timed alone: the
+        # dispatch runs them outside the timed checks of STATS.msm_host_s
+        t0 = time.perf_counter()
+        for r in recs:
+            E._schnorr_precheck(r)
+        return time.perf_counter() - t0
+
+    for i, n in enumerate(MSM_CURVE):
+        recs = schnorr_records(signers, n, seed + i)
+        got, wall, counts, st = run(recs)
+        row = {"n": n, "wall_s": wall, "sigs_per_s": n / wall,
+               "precheck_s": precheck_s(recs),
+               "launches": counts["launches"],
+               "launch_shapes": counts["launch_shapes"], "stats": st}
+        checks = {"no_fallback": st["cpu_fallback_sigs"] == 0
+                  and st["fault_fallback_sigs"] == 0
+                  and st["msm_fallback_sigs"] == 0,
+                  "msm_launched": counts["launches"]["msm"] >= 2}
+        if n <= 31:
+            want, o_wall = schnorr_oracle(recs)
+            row["oracle_sigs_per_s"] = n / o_wall
+            checks["equal_oracle"] = bool(np.array_equal(got, want))
+        else:
+            checks["all_true"] = bool(got.all())
+        row["checks"] = checks
+        rows[f"n={n}"] = row
+    n, pos = forged
+    recs = schnorr_records(signers, n, seed + 50, forged={pos})
+    got, wall, counts, st = run(recs)
+    rows["forged"] = {
+        "n": n, "position": pos, "wall_s": wall,
+        "launches": counts["launches"], "stats": st,
+        "checks": {"false_at_its_lane_only": (not got[pos])
+                   and int(got.sum()) == n - 1,
+                   "bisected": st["msm_bisects"] > 0
+                   and st["msm_bisect_depth_max"] > 0,
+                   "no_fallback": st["msm_fallback_sigs"] == 0}}
+    recs = schnorr_records(signers, 9, seed + 60, forged={4})
+    want, _ = schnorr_oracle(recs)
+    for mode in ("fail-always", "poison-output"):
+        os.environ.update(BCP_FAULT_MODE=mode, BCP_FAULT_OPS=E.MSM_SITE)
+        faults.INJECTOR.reload()
+        try:
+            got, wall, counts, st = run(recs)
+        finally:
+            for k in ("BCP_FAULT_MODE", "BCP_FAULT_OPS"):
+                os.environ.pop(k, None)
+            faults.INJECTOR.reload()
+        checks = {"equal_oracle": bool(np.array_equal(got, want)),
+                  "oracle_served": st["msm_fallback_sigs"] == len(recs)}
+        if mode == "fail-always":
+            checks["no_launch"] = counts["launches"]["msm"] == 0
+        else:
+            checks["canary_tripped"] = st["msm_canary_failures"] > 0
+        rows[f"drill {mode}"] = {"launches": counts["launches"],
+                                 "stats": st, "checks": checks}
+    _zero_counts()
+    return rows
+
+
+def msm_chain_phase(workdir: str, signers: list,
+                    sigs: int = MSM_CHAIN_SIGS, runs: int = 3,
+                    seed: int = 900) -> dict:
+    """The Schnorr path: a regtest chain of ``sigs`` Schnorr-signed dense
+    inputs (workload/sigchain.generate(schnorr=True): 250 inputs a
+    transaction, 8 a block; the runway and fan-out ECDSA) validated under
+    -ecdsakernel=msm ``runs`` times at PIPELINE_DEPTH through the node's
+    2046-lane LanePacker (counts zeroed just before each run, read just
+    after): its coin digest and best block equal to those of the same
+    blocks connected without script checks, the tampered tip (a byte of
+    one Schnorr s altered) rejected, MSM launches and the GLV launches of
+    the ECDSA lanes counted, no fallback of any kind. Then
+    MSM_ORACLE_LANES of the chain's Schnorr lanes, drawn at random, held
+    against the oracle (valid: the chain's verdict), and the host
+    prechecks of all its Schnorr lanes timed alone."""
+    from bitcoincashplus_tpu_torch.consensus.block import CBlock
+    from bitcoincashplus_tpu_torch.consensus.params import regtest_params
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.store.blockstore import MemoryBlockStore
+    from bitcoincashplus_tpu_torch.validation.chain import BlockStatus
+    from bitcoincashplus_tpu_torch.validation.chainstate import (
+        ChainstateManager)
+    from bitcoincashplus_tpu_torch.validation.coins import MemoryCoinsView
+    from bitcoincashplus_tpu_torch.workload import sigchain
+
+    t0 = time.monotonic()
+    gen = sigchain.generate(workdir, sigs, tip_inputs=16, schnorr=True)
+    gen_s = time.monotonic() - t0
+    log(f"schnorr chain: {gen['blocks']} blocks, {gen['sigs']} Schnorr "
+        f"sigs, {gen['bytes']} bytes, generated in {gen_s:.1f} s")
+    t0 = time.monotonic()
+    ref = ChainstateManager(regtest_params(), MemoryCoinsView(),
+                            MemoryBlockStore(), script_verifier=None)
+    for block in sigchain.read_blocks(workdir):
+        ref.process_new_block(block)
+    ref_digest = sigchain.coin_digest(ref)
+    noscript_s = time.monotonic() - t0
+    bad = CBlock.from_bytes(gen["tampered_tip"])
+    out = []
+    for i in range(runs):
+        _zero_counts()
+        t0 = time.monotonic()
+        cs, dev = sigchain.validate_chain(workdir, "device", kernel="msm",
+                                          depth=PIPELINE_DEPTH)
+        wall = time.monotonic() - t0
+        cs.process_new_block(bad)
+        rejected = bool(cs.block_index[bad.get_hash()].status
+                        & BlockStatus.FAILED_VALID) \
+            and cs.tip().hash == dev_tip(dev)
+        counts = _read_counts()
+        st = counts["stats"]
+        launches = counts["launches"]
+        checks = {
+            "digest_equal_noscript": dev["digest"] == ref_digest,
+            "best_equal_noscript": dev["best"] == ref.tip().hash.hex(),
+            "tampered_rejected": rejected,
+            "msm_launched": launches["msm"] > 0,
+            "glv_for_ecdsa": launches["glv_dev_verify"] > 0,
+            "no_cpu_fallback": st["cpu_fallback_sigs"] == 0,
+            "no_fault_fallback": st["fault_fallback_sigs"] == 0,
+            "no_msm_fallback": st["msm_fallback_sigs"] == 0,
+            "no_kat_failures": st["kat_failures"] == 0,
+            "breaker_healthy": counts["healthy"],
+        }
+        out.append({"wall_s": wall, "sigs_per_s": gen["sigs"] / wall,
+                    "launches": launches,
+                    "launch_shapes": counts["launch_shapes"],
+                    "stats": {k: st[k] for k in MSM_STAT_KEYS},
+                    "checks": checks})
+    recs = [r for r in sigchain.chain_sig_records(workdir, 10 ** 9)
+            if r.algo == "schnorr"]
+    rng = random.Random(seed)
+    sample = rng.sample(recs, MSM_ORACLE_LANES)
+    want, o_wall = schnorr_oracle(sample)
+    t0 = time.perf_counter()
+    for r in recs:
+        E._schnorr_precheck(r)
+    precheck_s = time.perf_counter() - t0
+    return {"gen": {k: v for k, v in gen.items() if "tip" not in k},
+            "gen_s": gen_s, "noscript_s": noscript_s,
+            "schnorr_lanes": len(recs), "precheck_s": precheck_s,
+            "runs": out,
+            "oracle": {"lanes": len(sample), "all_true": bool(want.all()),
+                       "sigs_per_s": len(sample) / o_wall}}
+
 
 def dev_tip(summary: dict) -> bytes:
     return bytes.fromhex(summary["best"])
@@ -2337,7 +2815,8 @@ def main() -> int:
     sass = {}
     for lib in info["libraries"].values():
         sass.update(sass_counts(lib, W4_KERNELS + GLV_KERNELS
-                                + SWEEP_KERNELS + BATCH_KERNELS) or {})
+                                + SWEEP_KERNELS + BATCH_KERNELS
+                                + MSM_KERNELS) or {})
     # the w4 kernels keep every value in registers and shared memory: no
     # stack frame, no spill, no local load or store in their SASS
     w4 = {fn: r for fn, r in ptxas.items() if "w4_" in fn}
@@ -2407,6 +2886,20 @@ def main() -> int:
             or v["spill_loads"] or v["sass_local"] for v in batch.values()):
         raise AssertionError(f"batch kernels missing from the build report "
                              f"or using local memory: {batch}")
+    # the MSM kernels: registers, stack and spills of every instance, no
+    # local memory (the buckets live in global memory by design)
+    msm_build = {k: {**ptxas.get(k, {}), "sass_total":
+                     sass.get(k, {}).get("total"),
+                     "ldl_stl": sass.get(k, {}).get("local")}
+                 for k in sorted(set(ptxas) | set(sass))
+                 if k.startswith(MSM_KERNELS)}
+    for k, v in msm_build.items():
+        log(f"MSM build: {k}: {v}")
+    if len(msm_build) != len(MSM_KERNELS) or any(
+            v.get("registers") is None or v["stack"] or v["spill_stores"]
+            or v["spill_loads"] or v["ldl_stl"] for v in msm_build.values()):
+        raise AssertionError(f"MSM kernels missing from the build report or "
+                             f"using local memory: {msm_build}")
     bops = batch_ops()
     for key, kernel in (("header", "sha256d_headers_kernel<0>"),
                         ("pair", "sha256d_pairs_kernel")):
@@ -2434,6 +2927,21 @@ def main() -> int:
     decomp = glv_decompose_phase(clock_hz)
     log(f"glv_decompose: {json.dumps(decomp)}; every lane equal to the "
         f"Python split and to the plain version")
+    # 2c. the Schnorr MSM (K9) at every bucket, against its plain version
+    # and the host's sum
+    fe_cycles = chains["cycles_a_step"]["fe_mul 1 warp(s)/scheduler"]
+    msm_rows = [msm_case(M, 700 + i, clock_hz, fe_cycles)
+                for i, M in enumerate(MSM_BUCKETS)]
+    for r in msm_rows:
+        log(f"msm M={r['M']} (K={r['K']}): msm_run {r['ms']:.4f} ms (launch "
+            f"kinds {', '.join(f'{k} {v:.4f}' for k, v in r['stages'].items())} ms), "
+            f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {r['work']['madd']} mixed adds, "
+            f"{r['work']['full']} full adds, {r['work']['double']} "
+            f"doublings), chain floor {r['chain_floor_ms']:.4f} ms "
+            f"({r['work']['chain_levels']} dependent product levels x "
+            f"{fe_cycles:.0f} cycles); {r['cases']} results equal to the "
+            f"plain version and the host's sum")
     log(f"GLV_LAUNCH (most lanes, team code, block): {S.GLV_LAUNCH}; team "
         f"codes {S.GLV_TEAMS} ({', '.join(map(team_name, S.GLV_TEAMS))})")
     for name, rows in cases.items():
@@ -2609,6 +3117,60 @@ def main() -> int:
     if not all(bb["checks"].values()):
         raise AssertionError(f"big-block checks failed: {bb['checks']}")
 
+    # 5c. the Schnorr batch check's paths: dispatch_batch under
+    # -ecdsakernel=msm at MSM_CURVE sizes with a forged lane and the
+    # drills, then the Schnorr chain (counts zeroed inside, just before
+    # each run, read just after)
+    from bitcoincashplus_tpu_torch.workload import sigchain
+    signers = [sigchain.SchnorrSigner(0x5C4 + k) for k in range(4)]
+    md = msm_dispatch_phase(signers)
+    log(f"msm dispatch: {json.dumps(md, sort_keys=True)}")
+    failed = []
+    for key, row in md.items():
+        failed += [f"msm dispatch {key}: {k}"
+                   for k, v in row["checks"].items() if not v]
+        st = row["stats"]
+        if "sigs_per_s" in row:
+            log(f"msm dispatch {key}: {row['sigs_per_s']:.0f} sigs/s "
+                f"({row['wall_s']:.4f} s: the prechecks alone "
+                f"{row['precheck_s']:.4f} s, checks' host "
+                f"{st['msm_host_s']:.4f} s, "
+                f"kernel calls {st['msm_device_s']:.4f} s, canaries "
+                f"{st['msm_canary_s']:.4f} s; {st['msm_dispatches']} MSM "
+                f"launches, shapes {row['launch_shapes']})"
+                + (f"; the per-lane oracle {row['oracle_sigs_per_s']:.1f} "
+                   f"sigs/s" if "oracle_sigs_per_s" in row else ""))
+    f = md["forged"]["stats"]
+    log(f"msm forged lane {md['forged']['position']} of "
+        f"{md['forged']['n']}: {md['forged']['wall_s']:.3f} s, "
+        f"bisects {f['msm_bisects']}, depth {f['msm_bisect_depth_max']}, "
+        f"rejected {f['msm_batches_rejected']}, accepted "
+        f"{f['msm_batches_accepted']}, oracle sigs {f['schnorr_cpu_sigs']}")
+    mdir = os.path.join(REPO, "build", "smoke_schnorr")
+    shutil.rmtree(mdir, ignore_errors=True)
+    try:
+        mc = msm_chain_phase(mdir, signers)
+    finally:
+        shutil.rmtree(mdir, ignore_errors=True)
+    log(f"schnorr chain: {json.dumps(mc, sort_keys=True)}")
+    log(f"schnorr chain: the host prechecks of its {mc['schnorr_lanes']} "
+        f"Schnorr lanes alone {mc['precheck_s']:.3f} s; the per-lane oracle "
+        f"{mc['oracle']['sigs_per_s']:.1f} sigs/s on {mc['oracle']['lanes']} "
+        f"of them, all valid")
+    for i, run in enumerate(mc["runs"]):
+        st = run["stats"]
+        log(f"schnorr chain run {i} (msm): {mc['gen']['sigs']} Schnorr sigs "
+            f"in {run['wall_s']:.3f} s = {run['sigs_per_s']:.0f} sigs/s; "
+            f"MSM host {st['msm_host_s']:.3f} s, kernel calls "
+            f"{st['msm_device_s']:.3f} s, canaries {st['msm_canary_s']:.3f} "
+            f"s; launches {run['launches']}, shapes {run['launch_shapes']}")
+        failed += [f"schnorr chain run {i}: {k}"
+                   for k, v in run["checks"].items() if not v]
+    if not mc["oracle"]["all_true"]:
+        failed.append("schnorr chain: a sampled lane fails the oracle")
+    if failed:
+        raise AssertionError(f"msm checks failed: {failed}")
+
     # 6. the mining slice (the sweeps' main path; counts zeroed inside,
     # just before each engine, read just after)
     mdir = os.path.join(REPO, "build", "smoke_mining")
@@ -2674,6 +3236,8 @@ def main() -> int:
         "glv_verify": "bitcoincashplus_tpu/ops/secp256k1.py:1296",
         "glv_decompose": "bitcoincashplus_tpu/ops/secp256k1.py:1539",
     }
+    msm_replaces = {"msm": "bitcoincashplus_tpu/ops/secp256k1.py:1967",
+                    "msm_partial": "bitcoincashplus_tpu/ops/secp256k1.py:1977"}
     kernels = []
     for name, rows in cases.items():
         counts = path_shapes[name]
@@ -2766,6 +3330,27 @@ def main() -> int:
                                           "bound_ms", "chain_floor_ms")
                         if k in r}
                        for r in rows]})
+    # the MSM: the verdict entry's launches on its paths (the Schnorr
+    # chain's runs, the dispatch sizes, the drills); the partial entry has
+    # no caller on any path (the sharded fold is not ported); each at the
+    # chain's bucket
+    msm_launches = sum(run["launches"]["msm"] for run in mc["runs"]) + sum(
+        row["launches"]["msm"] for row in md.values())
+    msm_main = next(r for r in msm_rows if r["M"] == 4096)
+    for name, launches in (("msm", msm_launches), ("msm_partial", 0)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "bitcoincashplus_tpu_torch/csrc/msm.cu",
+            "replaces": msm_replaces[name], "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in msm_rows),
+            "ms": msm_main["ms"], "plain_ms": msm_main["plain_ms"],
+            "bound_ms": msm_main["bound_ms"],
+            "bound_by": msm_main["bound_by"], "library_ms": None,
+            "M": 4096, "chain_floor_ms": msm_main["chain_floor_ms"],
+            "shapes": [{k: r[k] for k in ("M", "K", "ms", "stages",
+                                          "plain_ms", "bound_ms",
+                                          "chain_floor_ms", "work")}
+                       for r in msm_rows]})
     for kern in sorted(set(PATH_ORDER)):
         walls = [run["wall_s"] for run in sl["runs"]
                  if run["kernel"] == kern]

@@ -154,21 +154,22 @@ def test_lane_packer_futures_match_per_block_verdicts():
 
 
 def test_only_w4_exists_and_later_kernels_raise(monkeypatch):
-    # w4 and GLV (the default, as in the reference) exist; the Schnorr
-    # MSM is a later slice
+    # the reference's three kernels exist — GLV (the default), w4 and the
+    # Schnorr MSM — and any other name raises, leaving the selection as
+    # it was
     monkeypatch.setattr(E, "_KERNEL", None)
-    assert E.ECDSA_KERNELS == ("glv", "w4")
+    assert E.ECDSA_KERNELS == ("glv", "w4", "msm")
     assert E.active_kernel() == "glv"
-    with pytest.raises(ValueError, match="later slice"):
-        E.set_kernel("msm")
     with pytest.raises(ValueError, match="unknown"):
         E.set_kernel("xla")
     assert E.active_kernel() == "glv"  # rejected = unchanged
+    assert E.set_kernel("msm") == "msm"
+    assert E.active_kernel() == "msm"
     assert E.set_kernel("w4") == "w4"
     assert E.active_kernel() == "w4"
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown"):
         E.dispatch_batch(make_records(5, 9)[0], backend="device",
-                         kernel="msm")
+                         kernel="xla")
 
 
 def test_cuda_without_a_card_raises_and_is_never_degraded():

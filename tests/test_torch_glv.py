@@ -471,9 +471,11 @@ RUNGS = ("ecdsa_verify_batch_glv_dev", "ecdsa_verify_batch_glv",
 
 
 def test_default_kernel_is_glv_with_the_device_split(monkeypatch):
-    assert E.ECDSA_KERNELS == ("glv", "w4") and E.active_kernel() == "glv"
-    with pytest.raises(ValueError, match="K9"):
-        E.set_kernel("msm")
+    """GLV is the default; -ecdsakernel=msm is accepted, and the ECDSA
+    lanes under it take the same GLV device-split rung (the MSM batch
+    equation is Schnorr's), as in the reference."""
+    assert E.ECDSA_KERNELS == ("glv", "w4", "msm")
+    assert E.active_kernel() == "glv"
     calls = _spy(monkeypatch, RUNGS)
     recs = make_records(31, 12)
     got = E.verify_batch(recs, backend="device")
@@ -485,6 +487,12 @@ def test_default_kernel_is_glv_with_the_device_split(monkeypatch):
     assert st.buckets_used == {1024: 1}  # the GLV legs' floor bucket
     assert st.cpu_fallback_sigs == 0 and st.fault_fallback_sigs == 0
     assert E._PW_GLV_DEV.signatures.get((1024,), 0) >= 1
+    monkeypatch.setattr(E, "_KERNEL", None)
+    assert E.set_kernel("msm") == "msm" and E.active_kernel() == "msm"
+    got = E.verify_batch(recs, backend="device")
+    assert got.tolist() == oracle_verdicts(recs)
+    assert calls == {RUNGS[0]: 2, RUNGS[1]: 0, RUNGS[2]: 0, RUNGS[3]: 0}
+    assert st.glv_dev_dispatches == 2 and st.msm_dispatches == 0
 
 
 @pytest.mark.parametrize("site,rung", [(E.GLV_DEV_SITE, 1), (E.GLV_SITE, 3)],

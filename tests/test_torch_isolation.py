@@ -100,22 +100,63 @@ def _fallback_only_for_injected_faults(code: str) -> str:
     return code
 
 
+def _msm_oracle_only_for_injected_faults(code: str) -> str:
+    # the MSM rung hands a batch to the per-lane oracle only for a fault
+    # the harness injected (an InjectedFault, or a canary trip in an
+    # attempt whose verdicts poison-output flipped); anything else raises
+    for old, new in (
+        ("            INJECTOR.on_call('ecdsa')\n",
+         "            poisoned = INJECTOR.poisoned.get(MSM_SITE, 0)\n"
+         "            INJECTOR.on_call('ecdsa')\n"),
+        ("        except Exception as e:\n            last = e\n",
+         "        except Exception as e:\n"
+         "            _raise_unless_msm_injected(e, poisoned)\n"
+         "            last = e\n")):
+        assert code.count(old) == 1, old
+        code = code.replace(old, new)
+    return code
+
+
+def _open_breaker_oracle_only_for_injected_faults(code: str) -> str:
+    # an open ecdsa breaker sends a Schnorr batch to the oracle only while
+    # a fault is armed at ecdsa or ecdsa_msm; otherwise it raises
+    old = "        else:\n            br.note_fallback(n)\n"
+    new = ("        else:\n"
+           "            if not (INJECTOR.armed_for('ecdsa') or "
+           "INJECTOR.armed_for(MSM_SITE)):\n"
+           "                raise KernelUnavailable(f'the ecdsa breaker is "
+           "open and no fault is injected at ecdsa or {MSM_SITE}: "
+           "{br.snapshot()}')\n"
+           "            br.note_fallback(n)\n")
+    assert code.count(old) == 1
+    return code.replace(old, new)
+
+
 # functions of the port's own modules that keep the reference's code (the
 # docstring aside) apart from the listed difference
 FUNCTION_DIFFERENCES = {
     ("ops/dispatch", "supervised_call"): _fallback_only_for_injected_faults,
+    ("ops/ecdsa_batch", "_dispatch_msm"): _msm_oracle_only_for_injected_faults,
+    ("ops/ecdsa_batch", "_dispatch_schnorr"):
+        _open_breaker_oracle_only_for_injected_faults,
 }
 
 
 # functions of the port's own modules that keep the reference's code as it
 # is (the docstring aside): the GLV host part, what feeds the GLV legs
 # (the device split's byte emit, the known-answer lanes, the packed
-# blobs), and the Merkle front door (its gate and CPU confirmation)
+# blobs), the kernel selection, the MSM rung's host part (the canary
+# records, the coefficient RNG, the prechecks, the buckets, the pack, the
+# canary gate and bisection, the per-lane oracle), and the Merkle front
+# door (its gate and CPU confirmation)
 FUNCTION_COPIES = [
     ("ops/dispatch", "merkle_root"), ("ops/dispatch", "_merkle_device_min"),
 ] + [("ops/ecdsa_batch", name) for name in (
-    "active_kernel", "_glv_pack_parts", "pack_records_glv",
-    "pack_records_w4_bytes", "_kat_records", "records_to_blobs")] + [("ops/secp256k1", name) for name in (
+    "active_kernel", "set_kernel", "_glv_pack_parts", "pack_records_glv",
+    "pack_records_w4_bytes", "_kat_records", "records_to_blobs",
+    "_schnorr_kat_records", "_msm_rng", "_schnorr_precheck",
+    "_msm_bucket_for", "_msm_pack", "_msm_verify_records",
+    "_schnorr_oracle")] + [("ops/secp256k1", name) for name in (
         "_round_div", "glv_split", "glv_decompose", "_np_limbs16",
         "_np_const16", "_np_mul", "_np_norm", "_np_sub", "_np_ge", "_np_dbl",
         "_np_bytes_le", "glv_split_batch_np", "glv_decompose_batch_np",
@@ -295,3 +336,31 @@ def test_kernel_info_has_the_reference_keys():
     assert _value_keys(info) == _literal_keys(ret.value)
     assert info["dev_decompose"]["enabled"] and ecdsa_batch.glv_enabled()
     assert not info["glv_broken"] and not info["dev_decompose"]["broken"]
+    assert info["kernels"] == ["glv", "w4", "msm"]
+
+
+@pytest.mark.parametrize("key,field", [
+    ("schnorr_sigs", "schnorr_sigs"), ("schnorr_cpu_sigs", "schnorr_cpu_sigs"),
+    ("dispatches", "msm_dispatches"),
+    ("batches_accepted", "msm_batches_accepted"),
+    ("batches_rejected", "msm_batches_rejected"),
+    ("bisects", "msm_bisects"), ("bisect_depth_max", "msm_bisect_depth_max"),
+    ("fallback_sigs", "msm_fallback_sigs"),
+    ("canary_failures", "msm_canary_failures")])
+def test_kernel_info_msm_keys_read_the_msm_counters(monkeypatch, key, field):
+    """Each key of kernel_info()["msm"] reads its STATS counter, as the
+    reference's does (its literal names the same field)."""
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch
+
+    path = os.path.join(REF, "ops", "ecdsa_batch.py")
+    fn = next(node for node in ast.parse(open(path).read(), path).body
+              if isinstance(node, ast.FunctionDef)
+              and node.name == "kernel_info")
+    ret = next(node for node in ast.walk(fn) if isinstance(node, ast.Return))
+    msm = next(v for k, v in zip(ret.value.keys, ret.value.values)
+               if k.value == "msm")
+    ref_field = next(v.attr for k, v in zip(msm.keys, msm.values)
+                     if k.value == key)
+    assert ref_field == field
+    monkeypatch.setattr(ecdsa_batch.STATS, field, 7)
+    assert ecdsa_batch.kernel_info()["msm"][key] == 7
