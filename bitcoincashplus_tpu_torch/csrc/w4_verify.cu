@@ -103,34 +103,6 @@ constexpr int kMaxShared = 232448; // the most dynamic shared memory a block may
 
 // ---- input decoding ---------------------------------------------------------
 
-// 20 limbs of 13 bits at limb-major stride B -> 8 words, reduced mod p.
-// Limbs are summed (not OR-ed), so a limb wider than 13 bits still means
-// its full value at weight 2^(13 i).
-__device__ __forceinline__ void fe_from_limbs13(u32 r[8], const u32* plane, int lane, int B) {
-    uint64_t acc[10];
-#pragma unroll
-    for (int w = 0; w < 10; w++) acc[w] = 0;
-#pragma unroll
-    for (int i = 0; i < 20; i++) {
-        const uint64_t v = (uint64_t)plane[(size_t)i * B + lane] << ((13 * i) & 31);
-        acc[(13 * i) >> 5] += v & 0xFFFFFFFFull;
-        acc[((13 * i) >> 5) + 1] += v >> 32;
-    }
-    u32 t[16];
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < 10; i++) {
-        c += acc[i];
-        t[i] = (u32)c;
-        c >>= 32;
-    }
-#pragma unroll
-    for (int i = 10; i < 16; i++) t[i] = 0u;
-    u32 w[8];
-    reduce512(w, t);  // t < 2^320
-    fe_canon(r, w);
-}
-
 struct ByteWindows {
     const uint8_t* row;  // 32 big-endian scalar bytes of this lane
     __device__ __forceinline__ u32 operator()(int k) const {

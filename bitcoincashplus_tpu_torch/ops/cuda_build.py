@@ -93,10 +93,12 @@ def _nvcc() -> str:
 
 
 def build() -> list:
-    """Compile each csrc/*.cu into its own library under
-    build/torch_kernels/ (the file name carries the hash of the source,
+    """Compile each csrc/*.cu into its own library under BUILD_DIR
+    (build/torch_kernels/ unless util/devicewatch.enable_compile_cache
+    points it elsewhere; the file name carries the hash of the source,
     the headers and the flags), one nvcc process per source, all started
-    together. Returns the library paths; raises KernelUnavailable."""
+    together; a library already there is reused. Returns the library
+    paths; raises KernelUnavailable."""
     srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     # the headers every source may include take part in each hash
     shared = b""
@@ -135,6 +137,7 @@ def build() -> list:
         else:
             os.replace(f"{outs[src]}.{os.getpid()}.tmp", outs[src])
     BUILD_INFO.update(libraries=dict(outs), cached=not procs,
+                      reused=len(outs) - len(procs),
                       seconds=time.monotonic() - t0, log="\n".join(logs))
     if failed:
         raise KernelUnavailable("nvcc failed: " + "; ".join(failed))

@@ -18,6 +18,11 @@ reference's:
     w4_verify_bytes); the small buckets 32 and 128 as host-expanded
     window and limb planes (``ecdsa_verify_batch_pallas_w4``, entry
     w4_verify_planes);
+  - the bit ladder, when ``BCP_SECP_PALLAS=0`` turns the w4 rung off
+    (``pallas_enabled``): ``pack_records``' (256, B) bit planes at the
+    plane buckets (``ecdsa_verify_batch_jit``, entry ladder_verify); the
+    packed entry then sends its blobs down the record route unless GLV
+    is the kernel;
   - the packed blobs of the native connect engine (``dispatch_packed``),
     in 8190-lane slices (bucket 8192), down the same ladder from the
     GLV device split;
@@ -151,6 +156,8 @@ _PW_GLV_DEV = dw.program("ecdsa_glv_decompose",
                          shape_budget=PALLAS_SHAPE_BUDGET)
 _PW_W4_BYTES = dw.program("ecdsa_w4_bytes", shape_budget=PALLAS_SHAPE_BUDGET)
 _PW_W4 = dw.program("ecdsa_w4", shape_budget=len(BUCKETS))
+# the bit ladder (BCP_SECP_PALLAS=0) pads to BUCKETS
+_PW_XLA = dw.program("ecdsa_xla", shape_budget=len(BUCKETS))
 # The Pippenger MSM batch check: term counts pad to the _MSM_BUCKETS
 # ladder, and the canary batches reuse the smallest bucket, so the shape
 # set is exactly that ladder.
@@ -258,6 +265,17 @@ def glv_dev_enabled() -> bool:
     """Gate of the device-split GLV leg (the first rung); always True, as
     glv_enabled."""
     return True
+
+
+def pallas_enabled() -> bool:
+    """The reference's switch between the w4 kernels and the bit ladder:
+    ``BCP_SECP_PALLAS=0`` (or ``false``) turns the w4 rung off, so the
+    record dispatch runs the bit ladder (ecdsa_verify_batch_jit) at the
+    plane buckets, and the packed entry sends its blobs down the record
+    route unless GLV is the kernel. Read at every call. The reference also
+    latched it off after a Mosaic failure; the port has no such latch (a
+    w4 failure raises KernelUnavailable)."""
+    return os.environ.get("BCP_SECP_PALLAS", "1") not in ("0", "false")
 
 
 def kernel_info() -> dict:
@@ -493,6 +511,22 @@ def _pack_limbs(records: Sequence, bucket: int):
     # real lanes un-poisoned, except any the precompute range-flagged
     q_inf[:n] = False if range_ok is None else ~np.asarray(range_ok, bool)
     return u1_bytes, u2_bytes, qx, qy, q_inf, r0, rn, wrap_ok
+
+
+def pack_records(records: Sequence, bucket: int):
+    """Step 2+3 for the bit-ladder kernel: SoA arrays padded to ``bucket``
+    lanes with (256, B) MSB-first bit planes. unpackbits on the 32-byte
+    big-endian scalars — vectorized, not a 256·B Python loop (host packing
+    must stay negligible next to the device dispatch)."""
+    n = len(records)
+    u1_bytes, u2_bytes, qx, qy, q_inf, r0, rn, wrap_ok = _pack_limbs(
+        records, bucket
+    )
+    u1b = np.zeros((256, bucket), np.uint32)
+    u2b = np.zeros((256, bucket), np.uint32)
+    u1b[:, :n] = np.unpackbits(u1_bytes, axis=1).T
+    u2b[:, :n] = np.unpackbits(u2_bytes, axis=1).T
+    return u1b, u2b, qx, qy, q_inf, r0, rn, wrap_ok
 
 
 def pack_records_w4(records: Sequence, bucket: int):
@@ -1237,9 +1271,11 @@ def _dispatch_device(records: Sequence, br,
 
     Kernel chain: GLV with the device split -> GLV from the host split ->
     w4 (buckets that are multiples of 1024 take the byte entry, the small
-    buckets 32 and 128 the plane entry). A GLV leg steps down only for a
-    fault the harness injected (_note_glv_dev_failure,
-    _note_glv_failure)."""
+    buckets 32 and 128 the plane entry) -> the bit ladder. The w4 rung
+    runs only when pallas_enabled(); otherwise the bit ladder
+    (ecdsa_verify_batch_jit, no degen plane) runs at the plane buckets, as
+    in the reference. A GLV leg steps down only for a fault the harness
+    injected (_note_glv_dev_failure, _note_glv_failure)."""
     from . import secp256k1 as dev
 
     wire = list(records) + list(_kat_records())
@@ -1265,7 +1301,7 @@ def _dispatch_device(records: Sequence, br,
                 device_ok, degen, poisoned = _glv_ladder(
                     bucket, lambda: pack_records_w4_bytes(wire, bucket),
                     lambda: pack_records_glv(wire, bucket))
-            if device_ok is None:
+            if device_ok is None and pallas_enabled():
                 bucket = _bucket_for(len(wire), pallas=True)
                 if bucket % 1024 == 0:
                     with dw.phase("ecdsa", "pack"):
@@ -1279,6 +1315,15 @@ def _dispatch_device(records: Sequence, br,
                     device_ok, degen = _watched_kernel(
                         _PW_W4, bucket, arrays,
                         dev.ecdsa_verify_batch_pallas_w4, split=None)
+            if device_ok is None:
+                # the bit ladder (BCP_SECP_PALLAS=0): pack_records' planes
+                # at the plane buckets; every add complete, no degen plane
+                bucket = _bucket_for(len(wire), pallas=False)
+                with dw.phase("ecdsa", "pack"):
+                    arrays = pack_records(wire, bucket)
+                device_ok = _watched_kernel(
+                    _PW_XLA, bucket, arrays, dev.ecdsa_verify_batch_jit,
+                    split=None)
             _note_device_dispatch(len(records), bucket)
             return BatchHandle(len(records), bucket, device_ok, degen=degen,
                                records=wire, breaker=br, kat=True, ctx=ctx,
@@ -1718,9 +1763,15 @@ def dispatch_packed(pub: np.ndarray, rs: np.ndarray, msg: np.ndarray,
     )
     if not use_device and native.available():
         return _packed_cpu_handle(pub, rs, msg, n)
-    if not use_device:
-        # no native library: the record-level path keeps one source of
-        # truth for the Python-int oracle fallback
+    # the packed device leg needs a byte kernel: GLV, or w4 while
+    # pallas_enabled(); otherwise (BCP_SECP_PALLAS=0 under w4 or msm) the
+    # blobs take the record route, to the bit ladder
+    packed_ok = pallas_enabled() or (
+        active_kernel() == "glv" and glv_enabled()
+    )
+    if not (use_device and packed_ok):
+        # the record-level path (the bit ladder, or, with no native
+        # library, the Python-int oracle) keeps one source of truth
         recs = _LazyRecords(pub, rs, msg)
         return dispatch_batch([recs[i] for i in range(n)], backend=backend)
 
@@ -1755,7 +1806,10 @@ def _dispatch_packed_device(pub, rs, msg, rn, wrap, n: int,
     """Supervised packed enqueue (retries + KAT lanes) down the ladder of
     _dispatch_device (GLV device split -> GLV host split -> the w4 byte
     entry) under the process default kernel (GLV under "msm": the blobs
-    are ECDSA); None when every attempt failed."""
+    are ECDSA); None when every attempt failed. As in the reference, the
+    w4 byte entry is the rung below GLV here whatever pallas_enabled()
+    says (dispatch_packed sends the blobs here with Pallas off only under
+    GLV, so only injected faults on both GLV rungs reach it then)."""
     from .. import native
     from . import secp256k1 as dev
 

@@ -1,8 +1,8 @@
-"""Batch secp256k1 verification: the w4 rung, the GLV rungs and the
-Schnorr batch check (a Pippenger MSM).
+"""Batch secp256k1 verification: the w4 rung, the GLV rungs, the bit
+ladder and the Schnorr batch check (a Pippenger MSM).
 
-Port of the w4, GLV and MSM parts of the reference's ops/secp256k1.py. Two
-layers:
+Port of the w4, GLV, bit-ladder and MSM parts of the reference's
+ops/secp256k1.py. Two layers:
 
 - **The kernels** (CUDA C++ for sm_90a, built with nvcc at first use and
   bound with ctypes by ops/cuda_build.py; their field core and point
@@ -28,7 +28,10 @@ layers:
   (``csrc/glv_lane.cuh``); ``GLV_LAUNCH`` picks the design, team and
   block per bucket. ``csrc/msm.cu`` replaces the plain-XLA MSM programs
   ``_msm_program`` (:1967) and ``_msm_partial_program`` (:1977) through
-  the entry ``msm_run`` (see its section below).
+  the entry ``msm_run`` (see its section below). ``csrc/ladder_verify.cu``
+  replaces the plain-XLA bit ladder ``ecdsa_verify_batch_jit`` (:508-512,
+  over ``ecdsa_verify_batch_device``, :463) through the entry
+  ``ladder_verify`` (see the last section).
 - **The plain versions**: the same verifies in PyTorch tensor ops, used
   for tensors on the CPU (the tests) and as the yardstick the kernels are
   held against on the card. They carry field elements as (..., 16) int64
@@ -79,7 +82,7 @@ JAX_N_LIMBS = 20
 # plain version does not count).
 LAUNCHES = {"w4_verify_bytes": 0, "w4_verify_planes": 0,
             "glv_dev_verify": 0, "glv_verify": 0, "glv_decompose": 0,
-            "msm": 0, "msm_partial": 0}
+            "msm": 0, "msm_partial": 0, "ladder_verify": 0}
 LAUNCH_SHAPES: dict = {}
 
 
@@ -584,17 +587,21 @@ def w4_verify_bytes_plain(u1m, u2m, qxb, qyb, q_inf8, r0b, rnb, wrap8):
         _expand_limb_cols(r0b), _expand_limb_cols(rnb), wrap8 != 0)
 
 
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 or uint32 words -> their unsigned values as int64."""
+    return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _lim13(t: torch.Tensor) -> torch.Tensor:
+    """(20, B) 13-bit limb planes (int32 or uint32) -> (B, 16) limbs."""
+    return _limbs13_to_port(_u32(t))
+
+
 def w4_verify_planes_plain(u1w, u2w, qx, qy, q_inf, r0, rn, wrap_ok):
     """The plain version of ecdsa_verify_batch_pallas_w4, on the inputs'
     own device."""
-    def u32(t):
-        return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-
-    def lim(t):
-        return _limbs13_to_port(u32(t))
-
-    return w4_verify_plain(u32(u1w).T & 0xF, u32(u2w).T & 0xF, lim(qx),
-                           lim(qy), q_inf != 0, lim(r0), lim(rn),
+    return w4_verify_plain(_u32(u1w).T & 0xF, _u32(u2w).T & 0xF, _lim13(qx),
+                           _lim13(qy), q_inf != 0, _lim13(r0), _lim13(rn),
                            wrap_ok != 0)
 
 
@@ -1522,3 +1529,87 @@ def msm_partial_point(xm, ym, inf8, km) -> tuple:
     canonical, (1, 1, 0) at infinity. Inputs as
     schnorr_msm_is_infinity's."""
     return _msm_result("msm_partial", xm, ym, inf8, km)
+
+
+# ---- the bit ladder (K8) -----------------------------------------------------
+#
+# Port of the reference's ecdsa_verify_batch_device (:463) behind
+# ecdsa_verify_batch_jit (:508-512): the ECDSA rung the reference's
+# dispatch runs when BCP_SECP_PALLAS=0 turns the w4 kernels off, on
+# pack_records' planes. An MSB-first joint double-and-add, 256 steps of a
+# doubling, the complete mixed add of G where the u1 bit is set and that
+# of Q where the u2 bit is set and Q is finite; then X == r0 Z^2, or
+# X == rn Z^2 where wrap_ok allows it, with q_inf lanes False. The
+# verdict is the group law's, exactly (every add is complete), so there
+# is no degen plane. The kernel is csrc/ladder_verify.cu (entry
+# ladder_verify); the plain version below serves CPU tensors and the
+# comparison on the card.
+
+
+def ladder_step(acc: tuple, b1, b2, qx, qy, q_inf) -> tuple:
+    """One step of the reference's ladder: double, then + G where b1, then
+    + Q where b2 and Q is finite (b1, b2, q_inf: (B,) bool)."""
+    c = _consts(qx.device)
+    acc = pt_double(acc)
+    with_g = pt_add_mixed(acc, c["gx"][1].expand_as(qx),
+                          c["gy"][1].expand_as(qx), torch.zeros_like(q_inf))
+    acc = pt_select(b1, with_g, acc)
+    with_q = pt_add_mixed(acc, qx, qy, q_inf)
+    return pt_select(b2 & ~q_inf, with_q, acc)
+
+
+def ladder_verify_plain(u1_bits, u2_bits, qx, qy, q_inf, r0, rn, wrap_ok):
+    """The plain PyTorch bit ladder (the reference's
+    ecdsa_verify_batch_device) in the port's layout: u1_bits, u2_bits
+    (B, 256) bool, MSB first; qx, qy, r0, rn (B, 16) limbs; q_inf,
+    wrap_ok (B,) bool. Returns ok (B,) bool."""
+    acc = _inf_points(qx.shape[0], qx.device)
+    for i in range(256):
+        acc = ladder_step(acc, u1_bits[:, i], u2_bits[:, i], qx, qy, q_inf)
+    ok, _degen = _verify_final(acc, torch.zeros_like(q_inf), q_inf, r0, rn,
+                               wrap_ok)
+    return ok
+
+
+def ladder_planes_plain(u1_bits, u2_bits, qx, qy, q_inf, r0, rn, wrap_ok):
+    """The plain version of ecdsa_verify_batch_jit on pack_records'
+    planes, converted to the port's layout on the inputs' own device."""
+    return ladder_verify_plain(_u32(u1_bits).T != 0, _u32(u2_bits).T != 0,
+                               _lim13(qx), _lim13(qy), q_inf != 0,
+                               _lim13(r0), _lim13(rn), wrap_ok != 0)
+
+
+def ecdsa_verify_batch_jit(u1_bits, u2_bits, qx, qy, q_inf, r0, rn, wrap_ok):
+    """The bit-ladder verify on pack_records' planes (the reference's name
+    and arguments): u1_bits, u2_bits (256, B) and qx, qy, r0, rn (20, B)
+    int32 or uint32 words, q_inf and wrap_ok (B,) bool or uint8, one
+    device. Returns ok (B,) bool on that device: CUDA tensors launch
+    csrc/ladder_verify.cu (the verdict still in flight until read), CPU
+    tensors run ladder_planes_plain; anything else, or a build or launch
+    failure, raises KernelUnavailable."""
+    B = qx.shape[1]
+    dev = qx.device
+    _check([u1_bits, u2_bits], dev, [(256, B)] * 2,
+           (torch.int32, torch.uint32))
+    _check([qx, qy, r0, rn], dev, [(JAX_N_LIMBS, B)] * 4,
+           (torch.int32, torch.uint32))
+    _check([q_inf, wrap_ok], dev, [(B,)] * 2, (torch.uint8, torch.bool))
+    if dev.type == "cpu":
+        return ladder_planes_plain(u1_bits, u2_bits, qx, qy, q_inf, r0, rn,
+                                   wrap_ok)
+    if dev.type != "cuda":
+        raise KernelUnavailable(f"no ladder kernel for device {dev}")
+    inputs = [u1_bits.contiguous(), u2_bits.contiguous(), qx.contiguous(),
+              qy.contiguous(), q_inf.to(torch.uint8).contiguous(),
+              r0.contiguous(), rn.contiguous(),
+              wrap_ok.to(torch.uint8).contiguous()]
+    ok = torch.empty(B, dtype=torch.uint8, device=dev)
+    fn = cuda_build.entry("ladder_verify", [ctypes.c_void_p] * 9
+                          + [ctypes.c_int, ctypes.c_void_p])
+    rc = fn(*[t.data_ptr() for t in inputs], ok.data_ptr(), B,
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch("ladder_verify", rc)
+    LAUNCHES["ladder_verify"] += 1
+    LAUNCH_SHAPES[("ladder_verify", B)] = LAUNCH_SHAPES.get(
+        ("ladder_verify", B), 0) + 1
+    return ok.view(torch.bool)

@@ -228,6 +228,14 @@ ENTRY_ARGS = {
 }
 
 
+def backend_is_cpu() -> bool:
+    """True when the port's device switch selects the CPU
+    (``cuda_build.set_device("cpu")``: the plain versions) — the
+    reference's probe of the XLA CPU backend, which node/node.py reads to
+    pick the mining engine (_select_sweep)."""
+    return cuda_build.device().type == "cpu"
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0

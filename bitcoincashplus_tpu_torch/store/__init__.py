@@ -1,6 +1,6 @@
-"""Persistence layer (host copy of the reference's store/ modules the
-block-validation slice needs: blockstore, kvstore, chainstatedb, muhash).
-The sharded coins store and snapshots are later slices."""
+"""Persistence layer (host copies of the reference's store/ modules:
+blockstore, kvstore, chainstatedb, muhash, certificate, and the node's
+sharded coins store and snapshots)."""
 
 from .blockstore import BlockStore, MemoryBlockStore
 from .kvstore import KVStore

@@ -21,9 +21,13 @@ Counterpart of the reference's util/devicewatch.py. What carries over:
 - **Stall watchdog** (``Watchdog``/``WATCHDOG``): framework-free, as in the
   reference (observe-only).
 
-Left out on purpose: the jax compilation-cache and ``jax.profiler`` hooks
-(PyTorch runs eagerly and has no compile to cache; a kernel is built once
-per process by ops/cuda_build).
+- **Compile cache** (``enable_compile_cache``, ``compile_cache_snapshot``:
+  the node's ``-compilecache=<dir>``): PyTorch runs eagerly and has no
+  program to cache, so the port's cache is the kernel library directory
+  of ops/cuda_build (a library there whose hash matches is loaded with no
+  nvcc run).
+
+Left out on purpose: the ``jax.profiler`` hooks.
 
 No CUDA work at import: the memory collector reads CUDA state only after
 something else initialised it.
@@ -222,6 +226,49 @@ def phase(site: str, phase_name: str):
         yield
     finally:
         note_phase(site, phase_name, time.perf_counter() - t0)
+
+
+# the compile cache (-compilecache / BCP_COMPILE_CACHE -> enable_compile_cache)
+_COMPILE_CACHE = {"dir": None, "enabled": False}
+
+
+def enable_compile_cache(path: str) -> dict:
+    """The node's -compilecache=<dir> (default OFF): point ops/cuda_build's
+    kernel library directory at ``path`` (created), so that a later
+    process with the same directory loads the libraries it finds there
+    instead of running nvcc (it takes effect at the process's first kernel
+    build). Seeds BCP_COMPILE_CACHE so subprocesses inherit it. Raises
+    OSError or ValueError (os.makedirs on a bad path), as the reference's
+    does."""
+    from ..ops import cuda_build
+
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    cuda_build.BUILD_DIR = path
+    os.environ["BCP_COMPILE_CACHE"] = path
+    with _LOCK:
+        _COMPILE_CACHE["dir"] = path
+        _COMPILE_CACHE["enabled"] = True
+    return compile_cache_snapshot()
+
+
+def compile_cache_snapshot() -> dict:
+    """Compile-cache state with the reference's keys: directory, enabled
+    flag, cache_hits (kernel libraries this process loaded without an nvcc
+    run) and the build's events (libraries built and reused)."""
+    from ..ops import cuda_build
+
+    info = cuda_build.BUILD_INFO
+    hits = info.get("reused", 0)
+    events = ({"cache_hits": hits, "builds": len(info["libraries"]) - hits}
+              if info else {})
+    with _LOCK:
+        return {
+            "dir": _COMPILE_CACHE["dir"],
+            "enabled": _COMPILE_CACHE["enabled"],
+            "cache_hits": hits,
+            "events": events,
+        }
 
 
 def transfer_snapshot() -> dict:

@@ -446,6 +446,36 @@ def validate_chain(datadir: str, backend: str, kernel: str | None = None,
                 "digest": coin_digest(cs)}
 
 
+def reindex(datadir: str, **flags) -> dict:
+    """The node's -reindex of the chain in ``datadir``, in process:
+    node/node.Node with -regtest -reindex and ``flags`` as -name=value
+    (``tpu="0"``: the CPU engine; ``ecdsakernel="w4"``; ...), closed
+    after. Returns its summary: height, best block (as validate_chain's),
+    the coin set's muhash_digest(), the wall seconds from the node's start
+    to its imported tip, and the engine that ran: "native" (the connect
+    engine's packed signature batches, with its last_import_stats) or
+    "python" (the import loop of the Python engine)."""
+    from ..node.config import Config
+    from ..node.node import Node
+
+    cfg = Config()
+    cfg.args.update(datadir=[datadir], regtest=["1"], reindex=["1"])
+    for name, value in flags.items():
+        cfg.args[name] = [str(value)]
+    t0 = time.monotonic()
+    node = Node(config=cfg)
+    try:
+        wall = time.monotonic() - t0
+        tip = node.chainstate.tip()
+        stats = node.last_import_stats
+        return {"height": tip.height, "best": tip.hash.hex(),
+                "muhash": node.coins_db.muhash_digest().hex(),
+                "wall_s": wall, "engine": "native" if stats else "python",
+                "import_stats": stats}
+    finally:
+        node.close()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--datadir", required=True)

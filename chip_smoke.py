@@ -7,9 +7,10 @@ NVIDIA card.
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build   — compile each csrc/*.cu (w4_verify.cu, glv_verify.cu,
-             glv_pair.cu, sha256d_sweep.cu, sha256d_batch.cu, msm.cu; the
-             ECDSA kernels share csrc/secp256k1_core.cuh, the GLV pair
-             csrc/glv_lane.cuh, the MSM csrc/secp256k1_complete.cuh) by
+             glv_pair.cu, sha256d_sweep.cu, sha256d_batch.cu, msm.cu,
+             ladder_verify.cu; the ECDSA kernels share
+             csrc/secp256k1_core.cuh, the GLV pair csrc/glv_lane.cuh, the
+             MSM and the bit ladder csrc/secp256k1_complete.cuh) by
              its own nvcc (sm_90a), all started together, from this
              checkout; print the build seconds, ptxas' registers, stack
              frame and spills per kernel, the w4 kernels' SASS local
@@ -19,7 +20,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              reported), the sweep kernels' SASS instruction counts
              (cuobjdump) beside the counts taken from their rounds, and
              the batch kernels' and the MSM kernels' (gated: no local
-             memory).
+             memory), and the bit ladder's (reported).
 2. ecdsa   — the w4 field core alone (entry w4_field_selftest: fe_mul,
              fe_sqr, fe_add, fe_sub, fe_canon, the zero test and fe_eq on
              FIELD_EDGES x FIELD_EDGES and 4096 seeded random pairs)
@@ -59,6 +60,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              verdict to the host's; device time of msm_run and of each
              launch kind,
              the plain version's wall, the IMAD bound and the chain floor.
+2d. ladder — the bit ladder (csrc/ladder_verify.cu, K8) through its
+             wrapper ecdsa_verify_batch_jit at every plane bucket 32 ..
+             16384 on pack_records' planes of seeded signatures with the
+             crafted corpus (u1 = 0, Q = G, Q = -G, Q = G and Q = -G with
+             u1 == u2, q_inf, wrap on and off, padding): every verdict
+             equal to the plain version's lane for lane on the card and to
+             the oracle; the entry timed by CUDA events, the plain
+             version's wall, the IMAD bound.
 3. sweeps  — each sweep entry (sweep_h7 at tile 2^20 and at the resident
              loop's 2^16 x 8, sweep_h7_pallas at 64 x 128 lanes x 4096
              tiles, sweep_exact at tile 2^16) against its plain version:
@@ -108,6 +117,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              the same verdicts. Any shape a path launched that phase 2
              did not cover is then held against the plain version the
              same way.
+5d. node   — the node's -reindex of the same chain (workload/sigchain
+             .reindex: node/node.Node in process, -regtest -reindex),
+             each run on a fresh copy of the datadir, counts zeroed just
+             before and read just after: -tpu=0 (the CPU engine: the
+             digest of record, no launch), the defaults (GLV:
+             glv_dev_verify launched, no ladder) and BCP_SECP_PALLAS=0
+             -ecdsakernel=w4 (the packed slices take the record route:
+             ladder_verify launched, no w4 or GLV entry); each run's wall,
+             sigs/s, engine, muhash, launches per kernel and fallback
+             counters (cpu_fallback_sigs, fault_fallback_sigs, every
+             breaker's fallback_calls: 0 on the device runs); height,
+             best block and muhash equal to -tpu=0's.
 5b. big blocks — the validation path with the device Merkle leg: a
              regtest chain of one-input transactions
              (workload/sigchain.generate, 13,286 sigs, 4,095 a block:
@@ -157,7 +178,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6c. gate   — the host compute_merkle_root beside the device leg end to
              end (ops/dispatch.merkle_root) at 128, 512, 1024 and 4096
              leaves.
-7. report  — a JSON line of the fourteen kernel entries with launches on
+7. report  — a JSON line of the fifteen kernel entries with launches on
              their paths, errors, times and bounds; the card's name and
              power limit; last, {"ok": true, "device": {...}}.
 
@@ -249,8 +270,13 @@ MINING_BLOCKS = {"exact": 4, "h7": 2, "pallas-h7": 2, "resident-h7": 2}
 MAX_TRIES = 16 << 32          # several full nonce spaces a block
 
 
+_T0 = time.monotonic()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A progress line, stamped with the seconds since the script
+    started."""
+    print(f"[chip_smoke +{time.monotonic() - _T0:.1f}s] {msg}", flush=True)
 
 
 def smi(query: str) -> str:
@@ -262,26 +288,44 @@ def smi(query: str) -> str:
 
 # ---- inputs -----------------------------------------------------------------
 
+def _mul_small(m: int, pt):
+    """m pt for a small m by double-and-add over m's bits (a few point
+    operations; the oracle's point_mul walks 256 bits, about 0.1 s)."""
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+
+    acc = None
+    for bit in bin(m)[2:]:
+        acc = O.point_add(O.point_double(acc), pt if bit == "1" else None)
+    return acc
+
+
 def signed_records(n: int, seed: int) -> list:
-    """n seeded ECDSA SigCheckRecords over 32 keys, every 4th one invalid
-    (message off by one), plus one crafted degenerate lane every 97 lanes:
-    pubkey G and message hash e = r, so u1 == u2 and the first nonzero
-    window adds jG to jG (H == 0). The degenerate signature is valid."""
+    """n seeded ECDSA SigCheckRecords over 32 keys (d0 .. d0 + 31), every
+    4th one invalid (message off by one), plus one crafted degenerate lane
+    every 97 lanes: pubkey G and message hash e = r, so u1 == u2 and the
+    first nonzero window adds jG to jG (H == 0); their nonces run k0,
+    k0 + 1, ... so that each R is one point add from the last. The
+    degenerate signature is valid."""
     from bitcoincashplus_tpu_torch import native
     from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
     from bitcoincashplus_tpu_torch.script.interpreter import SigCheckRecord
 
     rng = random.Random(seed)
-    keys = [rng.randrange(1, O.N) for _ in range(32)]
-    pubs = [O.point_mul(d, O.G) for d in keys]
+    d0 = rng.randrange(1, O.N - 32)
+    keys = [d0 + j for j in range(32)]
+    pubs = [O.point_mul(d0, O.G)]
+    for _ in keys[1:]:
+        pubs.append(O.point_add(pubs[-1], O.G))
+    k = rng.randrange(1, O.N - n)
+    R = O.point_mul(k, O.G)
     sign = native.ecdsa_sign if native.available() else O.ecdsa_sign
     out = []
     for i in range(n):
         if i % 97 == 5:
-            k = rng.randrange(1, O.N)
-            r = O.point_mul(k, O.G)[0] % O.N
+            r = R[0] % O.N
             s = pow(k, O.N - 2, O.N) * (2 * r) % O.N  # d = 1, e = r
             out.append(SigCheckRecord(O.G, r, s, r))
+            k, R = k + 1, O.point_add(R, O.G)
             continue
         j = rng.randrange(len(keys))
         e = rng.getrandbits(256) % O.N
@@ -332,12 +376,17 @@ def glv_records(n: int, seed: int) -> list:
 
     out = signed_records(n, seed)
     rng = random.Random(seed + 1)
+    # 256^j G, j = 0 .. 14: (u1 + u2) G = 2 t 256^j G in a few point adds
+    base = [O.G]
+    for _ in range(14):
+        base.append(_mul_small(256, base[-1]))
     for i in range(20, n, 89):
         j = rng.randrange(15)
         a = rng.randrange(256 ** j)
-        top = rng.randrange(1, 256) * 256 ** j
+        t = rng.randrange(1, 256)
+        top = t * 256 ** j
         u1, u2 = a + top, top - a
-        r = O.point_mul(u1 + u2, O.G)[0] % O.N
+        r = _mul_small(2 * t, base[j])[0] % O.N
         s_ = r * pow(u2, O.N - 2, O.N) % O.N
         out[i] = SigCheckRecord(O.G, r, s_, u1 * s_ % O.N)
     return out
@@ -1151,6 +1200,7 @@ GLV_KERNELS = ("glv_dev_verify_kernel", "glv_verify_kernel",
 BATCH_KERNELS = ("sha256d_headers_kernel", "sha256d_pairs_kernel",
                  "merkle_tree_kernel", "sha256d_chain_kernel")
 MSM_KERNELS = ("msm_buckets_kernel", "msm_merge_kernel", "msm_tail_kernel")
+LADDER_KERNELS = ("ladder_verify_kernel",)
 _ALU_ONLY = ("SHF", "SHL", "SHR", "LOP3", "PRMT", "ISETP")
 _NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
             "ATOM", "RED", "S2R", "NOP", "BSSY", "BSYNC", "WARPSYNC", "LDC",
@@ -1159,12 +1209,14 @@ _NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
 
 def _kernel_key(name: str) -> str:
     """A mangled kernel name -> the name of W4_KERNELS, GLV_KERNELS,
-    SWEEP_KERNELS, BATCH_KERNELS or MSM_KERNELS it holds, ``kernel<T>`` for a template
-    instance (the name itself when it holds none)."""
+    SWEEP_KERNELS, BATCH_KERNELS, MSM_KERNELS or LADDER_KERNELS it holds,
+    ``kernel<T>`` for a template instance (the name itself when it holds
+    none)."""
     import re
 
     key = next((k for k in W4_KERNELS + GLV_KERNELS + SWEEP_KERNELS
-                + BATCH_KERNELS + MSM_KERNELS if k in name), None)
+                + BATCH_KERNELS + MSM_KERNELS + LADDER_KERNELS if k in name),
+               None)
     t = key and re.search(key + r"IL[ib](\d+)E", name)
     return f"{key}<{t.group(1)}>" if t else (key or name)
 
@@ -2765,6 +2817,216 @@ def msm_chain_phase(workdir: str, signers: list,
                        "sigs_per_s": len(sample) / o_wall}}
 
 
+# ---- the bit ladder (K8) ------------------------------------------------------
+
+# every plane bucket of the record dispatch the node's paths reach: 32 and
+# 128 small batches, 2048 the record route's tail chunks, 8192 its slices
+LADDER_SHAPES = (32, 128, 512, 2048, 8192, 16384)
+# (squarings, products) of the ladder's formulas (csrc/ladder_verify.cu):
+# the doubling, a complete mixed add between finite points, the final check
+SQR_MUL_LADDER_DOUBLE, SQR_MUL_LADDER_ADD, SQR_MUL_LADDER_FINAL = \
+    (5, 2), (3, 8), (1, 2)
+
+
+def ladder_records(n: int, seed: int) -> list:
+    """signed_records with four crafted lanes at 20 .. 23 (the corpus of
+    tests/test_torch_ladder.py): u1 = 0; Q = G; Q = -G; and Q = -G with
+    e = r, so u1 == u2 and the first add meets the accumulator's negative
+    (the sum is infinity: invalid). signed_records' own degenerate lanes
+    (Q = G, e = r: the ladder's adds meet P == Q) stay."""
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+    from bitcoincashplus_tpu_torch.script.interpreter import SigCheckRecord
+
+    out = signed_records(n, seed)
+    rng = random.Random(seed + 2)
+
+    def signed(d, e):
+        r, s_ = O.ecdsa_sign(d, e)
+        return SigCheckRecord(O.point_mul(d, O.G), r, s_, e)
+
+    r = rng.randrange(1, O.N)
+    crafted = [signed(rng.randrange(1, O.N), 0), signed(1, rng.randrange(O.N)),
+               signed(O.N - 1, rng.randrange(O.N)),
+               SigCheckRecord(O.point_mul(O.N - 1, O.G), r,
+                              rng.randrange(1, O.N), r)]
+    out[20:24] = crafted
+    return out
+
+
+def ladder_imad_count(u1_bits, u2_bits, q_inf) -> int:
+    """The least 32-bit IMADs the ladder needs on this data, per finite
+    lane: a doubling a step after the first set bit, a complete mixed add
+    a set bit but the first (an add into infinity is a copy; the rare
+    P == Q and P == -Q cases are counted as generic adds), and the final
+    check. (256, B) bit planes."""
+    import numpy as np
+
+    dbl, madd, final = (s * IMAD_PER_FSQR + m * IMAD_PER_FMUL
+                        for s, m in (SQR_MUL_LADDER_DOUBLE, SQR_MUL_LADDER_ADD,
+                                     SQR_MUL_LADDER_FINAL))
+    b1 = np.asarray(u1_bits) != 0
+    b2 = np.asarray(u2_bits) != 0
+    live = ~np.asarray(q_inf, bool)
+    b2 = b2 & live[None, :]
+    any_set = b1 | b2
+    started = any_set.any(0)
+    first = np.where(started, any_set.argmax(0), 256)
+    doublings = np.maximum(0, 255 - first)
+    adds = b1.sum(0) + b2.sum(0) - started
+    imads = dbl * doublings + madd * adds + final * started
+    return int(imads[live].sum())
+
+
+def ladder_case(B: int, seed: int, clock_hz: float,
+                device: str = "cuda") -> dict:
+    """The bit ladder (entry ladder_verify) at one plane bucket on
+    pack_records' planes of ladder_records, with craft_lanes' q_inf and
+    wrap lanes and padding: the wrapper's verdicts equal to the plain
+    version's lane for lane on the card and to the oracle (q_inf, wrap-off
+    and padding lanes False); the entry timed by CUDA events; the plain
+    version's wall; the bound. (On a CPU device the wrapper itself takes
+    the plain version, and nothing is timed: a rehearsal of the
+    checks.)"""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    n = B - 3  # three padding lanes (q_inf by the packer)
+    recs = ladder_records(n, seed)
+    order = ("u1", "u2", "qx", "qy", "q_inf", "r0", "rn", "wrap")
+    arrays = dict(zip(order, [x.copy() for x in E.pack_records(recs, B)]))
+    kinds = craft_lanes(arrays, n, be=False)
+    dev = torch.device(device)
+    tens = []
+    for k in order:
+        x = np.ascontiguousarray(arrays[k])
+        if x.dtype == np.uint32:
+            x = x.view(np.int32)
+        tens.append(torch.from_numpy(x).to(dev))
+    plain_ms, plain = time_once(lambda: S.ladder_planes_plain(*tens), dev)
+    ok = S.ecdsa_verify_batch_jit(*tens).cpu().numpy()
+    plain = plain.cpu().numpy()
+    oracle = host_oracle(recs)
+    want = np.zeros(B, bool)
+    want[:n] = oracle
+    want[kinds["q_inf"] + kinds["wrap_off"]] = False
+    err = int(np.abs(ok.astype(int) - plain.astype(int)).max())
+    if err:
+        raise AssertionError(f"ladder_verify B={B}: differs from the plain "
+                             f"version at {np.nonzero(ok != plain)[0][:10]}")
+    if not np.array_equal(ok, want):
+        raise AssertionError(f"ladder_verify B={B}: differs from the oracle "
+                             f"at {np.nonzero(ok != want)[0][:10]}")
+    if not (ok[20:23].all() and not ok[23] and oracle[:n].any()
+            and (~oracle[:n]).any()):
+        raise AssertionError(f"ladder_verify B={B}: crafted lanes wrong")
+    ms = plain_ms
+    if dev.type == "cuda":
+        u8 = [t.to(torch.uint8) for t in (tens[4], tens[7])]
+        out = torch.empty(B, dtype=torch.uint8, device=dev)
+        args = [tens[0], tens[1], tens[2], tens[3], u8[0], tens[5], tens[6],
+                u8[1], out]
+        ms = time_cuda(entry_call("ladder_verify", [ctypes.c_void_p] * 9
+                                  + [ctypes.c_int, ctypes.c_void_p],
+                                  *[t.data_ptr() for t in args], B),
+                       10 if B <= 8192 else 5)
+        if not np.array_equal(out.cpu().numpy().astype(bool), ok):
+            raise AssertionError(f"ladder_verify B={B}: the timed launches "
+                                 f"differ from the wrapper's")
+    imads = ladder_imad_count(arrays["u1"], arrays["u2"], arrays["q_inf"])
+    in_bytes = B * (2 * 256 * 4 + 4 * 20 * 4 + 2)
+    ops_ms = imads / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3
+    bytes_ms = (in_bytes + B) / HBM_BYTES_S * 1e3
+    return {"B": B, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "imads": imads, "bytes_in": in_bytes, "max_abs_err": err,
+            "sigs_per_s": B / (ms / 1e3), "valid": int(ok.sum())}
+
+
+# the node's -reindex runs of phase 5d: (name, flags, environment)
+NODE_RUNS = (("tpu0", {"tpu": "0"}, {}),
+             ("glv", {}, {}),
+             ("ladder", {"ecdsakernel": "w4"}, {"BCP_SECP_PALLAS": "0"}))
+
+
+def node_phase(chain_dir: str, sigs: int) -> dict:
+    """The node's -reindex (workload/sigchain.reindex: node/node.Node in
+    process with -regtest -reindex) of the chain in ``chain_dir``, once a
+    run of NODE_RUNS, each on a fresh copy of the datadir, counts zeroed
+    just before and read just after: -tpu=0 (the CPU engine; its digest
+    is the one of record), the default (GLV), and BCP_SECP_PALLAS=0
+    -ecdsakernel=w4 (the packed slices take the record route to the bit
+    ladder). Each with its wall, sigs/s, engine, digest, launches per
+    kernel and fallback counters (the ecdsa STATS and every breaker's
+    fallback_calls)."""
+    from bitcoincashplus_tpu_torch.ops import dispatch
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.workload import sigchain
+
+    rows = {}
+    for name, flags, env in NODE_RUNS:
+        d = os.path.join(os.path.dirname(chain_dir), f"node_{name}")
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(chain_dir, d)
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            _zero_counts()
+            run = sigchain.reindex(d, **flags)
+            counts = _read_counts()
+            breakers = dispatch.snapshot()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            E.set_kernel("glv")
+            shutil.rmtree(d, ignore_errors=True)
+        stats = counts["stats"]
+        rows[name] = {
+            "flags": " ".join([f"{k}={v}" for k, v in env.items()]
+                              + [f"-{k}={v}" for k, v in flags.items()])
+            or "the defaults",
+            **{k: run[k] for k in ("height", "best", "muhash", "wall_s",
+                                   "engine")},
+            "sigs_per_s": sigs / run["wall_s"],
+            "import_stats": {k: v for k, v in (run["import_stats"]
+                                               or {}).items()
+                             if isinstance(v, (int, float))},
+            "launches": counts["launches"],
+            "launch_shapes": counts["launch_shapes"],
+            "fallbacks": {
+                "cpu_fallback_sigs": stats["cpu_fallback_sigs"],
+                "fault_fallback_sigs": stats["fault_fallback_sigs"],
+                "breaker_fallback_calls": sum(
+                    b["fallback_calls"] for b in breakers.values())},
+            "stats": {k: stats[k] for k in STAT_KEYS}}
+    record = rows["tpu0"]
+    launches = {k: rows[k]["launches"] for k in rows}
+    ladder = launches["ladder"]
+    checks = {
+        f"{k}_{f}_equal": rows[k][f] == record[f]
+        for k in ("glv", "ladder") for f in ("height", "best", "muhash")}
+    checks.update({
+        "tpu0_no_launch": sum(launches["tpu0"].values()) == 0,
+        "glv_launched": launches["glv"]["glv_dev_verify"] > 0,
+        "glv_no_ladder": launches["glv"]["ladder_verify"] == 0,
+        "ladder_launched": ladder["ladder_verify"] > 0,
+        "ladder_no_w4_or_glv": all(ladder[k] == 0 for k in
+                                   W4_ENTRIES + GLV_ENTRIES),
+        "no_fallback": all(v == 0 for k in ("glv", "ladder")
+                           for v in rows[k]["fallbacks"].values()),
+        "same_engine": len({r["engine"] for r in rows.values()}) == 1,
+    })
+    return {"runs": rows, "checks": checks}
+
+
 def dev_tip(summary: dict) -> bytes:
     return bytes.fromhex(summary["best"])
 
@@ -2816,7 +3078,7 @@ def main() -> int:
     for lib in info["libraries"].values():
         sass.update(sass_counts(lib, W4_KERNELS + GLV_KERNELS
                                 + SWEEP_KERNELS + BATCH_KERNELS
-                                + MSM_KERNELS) or {})
+                                + MSM_KERNELS + LADDER_KERNELS) or {})
     # the w4 kernels keep every value in registers and shared memory: no
     # stack frame, no spill, no local load or store in their SASS
     w4 = {fn: r for fn, r in ptxas.items() if "w4_" in fn}
@@ -2886,6 +3148,16 @@ def main() -> int:
             or v["spill_loads"] or v["sass_local"] for v in batch.values()):
         raise AssertionError(f"batch kernels missing from the build report "
                              f"or using local memory: {batch}")
+    # the bit ladder: registers, stack, spills and SASS local accesses,
+    # reported
+    for k in sorted(set(ptxas) | set(sass)):
+        if k.startswith(LADDER_KERNELS):
+            log(f"ladder build: {k}: {ptxas.get(k)}, SASS "
+                f"{sass.get(k, {}).get('total')} instructions, "
+                f"{sass.get(k, {}).get('local')} LDL/STL")
+    if not any(k.startswith(LADDER_KERNELS) for k in ptxas):
+        raise AssertionError("the bit ladder is missing from the build "
+                             "report")
     # the MSM kernels: registers, stack and spills of every instance, no
     # local memory (the buckets live in global memory by design)
     msm_build = {k: {**ptxas.get(k, {}), "sass_total":
@@ -2942,6 +3214,16 @@ def main() -> int:
             f"({r['work']['chain_levels']} dependent product levels x "
             f"{fe_cycles:.0f} cycles); {r['cases']} results equal to the "
             f"plain version and the host's sum")
+    # 2d. the bit ladder (K8) at every plane bucket, against its plain
+    # version and the oracle
+    ladder_rows = [ladder_case(B, 950 + i, clock_hz)
+                   for i, B in enumerate(LADDER_SHAPES)]
+    for r in ladder_rows:
+        log(f"ladder_verify B={r['B']}: kernel {r['ms']:.3f} ms "
+            f"({r['sigs_per_s']:.0f} sigs/s), plain {r['plain_ms']:.1f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['imads']} "
+            f"IMADs; {r['bytes_in']} bytes in), {r['valid']} valid lanes; "
+            f"equal to the plain version lane for lane and to the oracle")
     log(f"GLV_LAUNCH (most lanes, team code, block): {S.GLV_LAUNCH}; team "
         f"codes {S.GLV_TEAMS} ({', '.join(map(team_name, S.GLV_TEAMS))})")
     for name, rows in cases.items():
@@ -3043,8 +3325,10 @@ def main() -> int:
     # 5. the block-validation slice (ECDSA main path; counts zeroed inside)
     workdir = os.path.join(REPO, "build", "smoke_chain")
     shutil.rmtree(workdir, ignore_errors=True)
+    sl = slice_phase(workdir)
+    # 5d. the node's -reindex of the same chain (fresh copies beside it)
     try:
-        sl = slice_phase(workdir)
+        nd = node_phase(workdir, sl["gen"]["sigs"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"slice: {json.dumps(sl, sort_keys=True)}")
@@ -3094,6 +3378,18 @@ def main() -> int:
                 f"({r['bound_by']}), {r['sigs_per_s']:.0f} sigs/s, "
                 f"{r['degen_lanes']} degen lane(s), err {r['max_abs_err']}, "
                 f"{path_shapes[name].get(r['B'], 0)} main-path launch(es)")
+
+    log(f"node -reindex: {json.dumps(nd, sort_keys=True)}")
+    for name, run in nd["runs"].items():
+        log(f"node -reindex {name} ({run['flags']}): "
+            f"height {run['height']}, {run['wall_s']:.3f} s = "
+            f"{run['sigs_per_s']:.0f} sigs/s, engine {run['engine']}, "
+            f"muhash {run['muhash'][:16]}; launches "
+            f"{ {k: v for k, v in run['launches'].items() if v} }, shapes "
+            f"{run['launch_shapes']}; fallbacks {run['fallbacks']}")
+    failed = [k for k, v in nd["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"node -reindex checks failed: {failed}")
 
     # 5b. the validation path with big blocks (the device Merkle leg)
     bdir = os.path.join(REPO, "build", "smoke_bigchain")
@@ -3351,6 +3647,28 @@ def main() -> int:
                                           "plain_ms", "bound_ms",
                                           "chain_floor_ms", "work")}
                        for r in msm_rows]})
+    # the bit ladder: its launches on the node's -reindex under
+    # BCP_SECP_PALLAS=0, at the shape that run launched most
+    ladder_counts = {}
+    for _name, B, n in nd["runs"]["ladder"]["launch_shapes"]:
+        ladder_counts[B] = ladder_counts.get(B, 0) + n
+    top = max(ladder_counts, key=lambda b: (ladder_counts[b], b))
+    ladder_main = next(r for r in ladder_rows if r["B"] == top)
+    kernels.append({
+        "name": "ladder_verify", "route": "cuda",
+        "source": "bitcoincashplus_tpu_torch/csrc/ladder_verify.cu",
+        "replaces": "bitcoincashplus_tpu/ops/secp256k1.py:509",
+        "launches": sum(r["launches"]["ladder_verify"]
+                        for r in nd["runs"].values()),
+        "max_abs_err": max(r["max_abs_err"] for r in ladder_rows),
+        **{k: ladder_main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "B")},
+        "library_ms": None,
+        "shapes": [{**{k: r[k] for k in ("B", "ms", "plain_ms", "bound_ms",
+                                         "imads", "bytes_in",
+                                         "sigs_per_s")},
+                    "launches": ladder_counts.get(r["B"], 0)}
+                   for r in ladder_rows]})
     for kern in sorted(set(PATH_ORDER)):
         walls = [run["wall_s"] for run in sl["runs"]
                  if run["kernel"] == kern]

@@ -27,7 +27,11 @@ HOST_COPIES = (
     "store/chainstatedb store/muhash store/certificate validation/__init__ "
     "validation/chain validation/coins validation/sigcache "
     "validation/scriptcheck validation/chainstate wallet/keys wallet/signing "
-    "native mining/__init__ mining/assembler mining/generate"
+    "native mining/__init__ mining/assembler mining/generate "
+    "mempool/__init__ mempool/accept mempool/fees mempool/mempool "
+    "mempool/persist mempool/policy store/sharded store/snapshot "
+    "serving/__init__ serving/gateway serving/replicas serving/sigservice "
+    "node/__init__ node/config node/node"
 ).split()
 # the package __init__ is the port's own (its docstring describes the port)
 HOST_COPIES.remove("__init__")
@@ -56,12 +60,23 @@ def _reraise_kernel_unavailable(src: str) -> str:
     return src
 
 
+def _no_jax_platform_pin(src: str) -> str:
+    # the node's start pinned jax to its CPU platform when the backend
+    # probe said CPU; the port imports no jax, and its device switch
+    # (ops/cuda_build.set_device) is the whole of that choice
+    old = src[src.index("        # JAX_PLATFORMS=cpu must actually mean CPU"):
+              src.index("        os.makedirs(self.datadir, exist_ok=True)")]
+    assert src.count(old) == 1 and "import jax" in old
+    return src.replace(old, "")
+
+
 # Not in HOST_COPIES, being the port's own: ops/dispatch.py (its
 # supervised_call is pinned function by function below) and
 # mining/resident.py (a CUDA stream of segments in place of JAX async
 # dispatch).
 DIFFERENCES = {
     "validation/scriptcheck": _reraise_kernel_unavailable,
+    "node/node": _no_jax_platform_pin,
 }
 
 
@@ -132,6 +147,15 @@ def _open_breaker_oracle_only_for_injected_faults(code: str) -> str:
     return code.replace(old, new)
 
 
+def _no_pallas_latch(code: str) -> str:
+    # the reference also latched the w4 rung off after a Mosaic failure;
+    # in the port a w4 failure raises KernelUnavailable, so only
+    # BCP_SECP_PALLAS turns the rung off
+    old = "return not _PALLAS_BROKEN and "
+    assert code.count(old) == 1
+    return code.replace(old, "return ")
+
+
 # functions of the port's own modules that keep the reference's code (the
 # docstring aside) apart from the listed difference
 FUNCTION_DIFFERENCES = {
@@ -139,13 +163,15 @@ FUNCTION_DIFFERENCES = {
     ("ops/ecdsa_batch", "_dispatch_msm"): _msm_oracle_only_for_injected_faults,
     ("ops/ecdsa_batch", "_dispatch_schnorr"):
         _open_breaker_oracle_only_for_injected_faults,
+    ("ops/ecdsa_batch", "pallas_enabled"): _no_pallas_latch,
 }
 
 
 # functions of the port's own modules that keep the reference's code as it
 # is (the docstring aside): the GLV host part, what feeds the GLV legs
 # (the device split's byte emit, the known-answer lanes, the packed
-# blobs), the kernel selection, the MSM rung's host part (the canary
+# blobs), the bit ladder's pack, the packed entry (its packed_ok rule and
+# record route), the kernel selection, the MSM rung's host part (the canary
 # records, the coefficient RNG, the prechecks, the buckets, the pack, the
 # canary gate and bisection, the per-lane oracle), and the Merkle front
 # door (its gate and CPU confirmation)
@@ -153,7 +179,8 @@ FUNCTION_COPIES = [
     ("ops/dispatch", "merkle_root"), ("ops/dispatch", "_merkle_device_min"),
 ] + [("ops/ecdsa_batch", name) for name in (
     "active_kernel", "set_kernel", "_glv_pack_parts", "pack_records_glv",
-    "pack_records_w4_bytes", "_kat_records", "records_to_blobs",
+    "pack_records_w4_bytes", "pack_records", "dispatch_packed",
+    "_kat_records", "records_to_blobs",
     "_schnorr_kat_records", "_msm_rng", "_schnorr_precheck",
     "_msm_bucket_for", "_msm_pack", "_msm_verify_records",
     "_schnorr_oracle")] + [("ops/secp256k1", name) for name in (
@@ -192,6 +219,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import bitcoincashplus_tpu_torch.ops.merkle\n"
         "import bitcoincashplus_tpu_torch.ops.sha256\n"
         "import bitcoincashplus_tpu_torch.store.certificate\n"
+        "import bitcoincashplus_tpu_torch.node.node\n"
+        "import bitcoincashplus_tpu_torch.serving\n"
+        "import bitcoincashplus_tpu_torch.mempool\n"
+        "import bitcoincashplus_tpu_torch.store.snapshot\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m.startswith('jaxlib')\n"
         "             or m == 'bitcoincashplus_tpu'\n"
@@ -364,3 +395,101 @@ def test_kernel_info_msm_keys_read_the_msm_counters(monkeypatch, key, field):
     assert ref_field == field
     monkeypatch.setattr(ecdsa_batch.STATS, field, 7)
     assert ecdsa_batch.kernel_info()["msm"][key] == 7
+
+
+# the port's own modules (not copies), and the reference modules copied
+# byte for byte that import names from them or read attributes of them
+PORT_OWNED = ("ops/sha256", "ops/merkle", "ops/dispatch", "ops/miner",
+              "ops/sha256_sweep", "ops/ecdsa_batch", "util/devicewatch",
+              "mining/resident")
+OWN_MODULE_READERS = ("node/node", "mempool/accept", "serving/sigservice")
+
+
+def _own_module_reads(module: str) -> dict:
+    """{port-owned module: names} the reference module reads from it:
+    ``from ..ops.sha256 import backend_is_cpu`` (at top level or in a
+    function), and ``alias.name`` after ``from ..util import devicewatch
+    as alias`` (relative imports resolved against its package)."""
+    path = os.path.join(REF, module + ".py")
+    tree = ast.parse(open(path).read(), path)
+    pkg = module.split("/")[:-1]
+    out: dict = {}
+    aliases: dict = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            base = pkg[:len(pkg) - (node.level - 1)]
+            mod = base + ([node.module.replace(".", "/")] if node.module
+                          else [])
+            target = "/".join(mod)
+            for a in node.names:
+                if target in PORT_OWNED:
+                    out.setdefault(target, set()).add(a.name)
+                elif f"{target}/{a.name}" in PORT_OWNED:
+                    aliases[a.asname or a.name] = f"{target}/{a.name}"
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute)
+                and isinstance(node.value, ast.Name)
+                and node.value.id in aliases):
+            out.setdefault(aliases[node.value.id], set()).add(node.attr)
+    return out
+
+
+@pytest.mark.parametrize("module", OWN_MODULE_READERS)
+def test_reference_copies_find_what_they_read_in_the_port(module):
+    """node/node (the mining engine probe ops/sha256.backend_is_cpu, the
+    sweeps, -ecdsakernel's set_kernel, the packed dispatch and its STATS,
+    -compilecache's devicewatch.enable_compile_cache, the WATCHDOG),
+    mempool/accept and serving/sigservice find every name they read in
+    the port's own modules."""
+    import importlib
+
+    reads = _own_module_reads(module)
+    assert reads, module
+    if module == "node/node":
+        assert "backend_is_cpu" in reads["ops/sha256"]
+        assert {"enable_compile_cache", "WATCHDOG"} <= \
+            reads["util/devicewatch"]
+        assert {"set_kernel", "dispatch_packed"} <= reads["ops/ecdsa_batch"]
+    for target, names in sorted(reads.items()):
+        mod = importlib.import_module(
+            "bitcoincashplus_tpu_torch." + target.replace("/", "."))
+        missing = sorted(n for n in names if not hasattr(mod, n))
+        assert not missing, f"{module} reads {missing} from {target}"
+
+
+def test_compile_cache_points_the_kernel_build_at_its_directory(tmp_path,
+                                                                monkeypatch):
+    """-compilecache=<dir>: the kernel library directory moves there
+    (created), BCP_COMPILE_CACHE is seeded, and the snapshot has the
+    reference's keys; a path that cannot be a directory raises OSError."""
+    from bitcoincashplus_tpu_torch.ops import cuda_build
+    from bitcoincashplus_tpu_torch.util import devicewatch
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    monkeypatch.setattr(devicewatch, "_COMPILE_CACHE",
+                        {"dir": None, "enabled": False})
+    monkeypatch.delenv("BCP_COMPILE_CACHE", raising=False)
+    path = str(tmp_path / "cache" / "kernels")
+    snap = devicewatch.enable_compile_cache(path)
+    assert os.path.isdir(path) and cuda_build.BUILD_DIR == path
+    assert os.environ["BCP_COMPILE_CACHE"] == path
+    assert set(snap) == {"dir", "enabled", "cache_hits", "events"}
+    assert snap["dir"] == path and snap["enabled"]
+    assert snap == devicewatch.compile_cache_snapshot()
+    blocker = tmp_path / "file"
+    blocker.write_text("")
+    with pytest.raises(OSError):
+        devicewatch.enable_compile_cache(str(blocker / "sub"))
+
+
+def test_backend_is_cpu_follows_the_device_switch():
+    from bitcoincashplus_tpu_torch.ops import cuda_build, sha256
+
+    before = cuda_build.device()
+    try:
+        cuda_build.set_device("cpu")
+        assert sha256.backend_is_cpu()
+        cuda_build.set_device("cuda")
+        assert not sha256.backend_is_cpu()
+    finally:
+        cuda_build.set_device(before)
