@@ -75,6 +75,17 @@ def require_device(what: str) -> torch.device:
     return d
 
 
+def device_names() -> list:
+    """The devices the port runs on, by name: each card's
+    ``torch.cuda.get_device_name`` under the CUDA switch (raising, as
+    ``require_device`` does, when there is none), ``["cpu"]`` under the
+    CPU switch."""
+    if require_device("the device list").type == "cpu":
+        return ["cpu"]
+    return [torch.cuda.get_device_name(i)
+            for i in range(torch.cuda.device_count())]
+
+
 # ---- build and load ---------------------------------------------------------
 
 _LIB_LOCK = threading.Lock()

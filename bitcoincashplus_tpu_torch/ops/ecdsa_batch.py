@@ -80,10 +80,11 @@ from ..util import telemetry as tm
 from ..util.faults import INJECTOR, Backoff, InjectedFault, PoisonedOutput
 from ..util.log import log_printf
 from . import dispatch
-# set_device is re-exported: the device switch is shared by every kernel
-# module of the port (ops/cuda_build.py)
-from .cuda_build import (KernelUnavailable, device, raise_kernel_fault,
-                         require_device, set_device)
+# set_device and device_names (gettpuinfo's device list) are re-exported:
+# the device switch is shared by every kernel module of the port
+# (ops/cuda_build.py)
+from .cuda_build import (KernelUnavailable, device, device_names,
+                         raise_kernel_fault, require_device, set_device)
 
 # -- telemetry families (util/telemetry): per-stage host-pack latency,
 # device settle-wait distribution, dispatch/flush lane-size histograms,

@@ -1502,14 +1502,26 @@ def _msm_launch(name: str, ts: list) -> torch.Tensor:
     return out
 
 
-def _msm_result(name: str, xm, ym, inf8, km) -> tuple:
+def _msm_start(name: str, xm, ym, inf8, km):
+    """Launch the MSM (CUDA: its result words, still in flight) or run
+    its plain version (CPU: the result itself)."""
     ts = _msm_tensors(xm, ym, inf8, km)
     dev = ts[0].device
     if dev.type == "cpu":
         return _point_result(msm_accumulate_plain(*ts))
     if dev.type != "cuda":
         raise KernelUnavailable(f"no MSM kernel for device {dev}")
-    return _words_result(_msm_launch(name, ts))
+    return _msm_launch(name, ts)
+
+
+def msm_partial_result(pending) -> tuple:
+    """What ``msm_partial_launch`` returned -> ((X, Y, Z), inf); waits for
+    the card."""
+    return pending if isinstance(pending, tuple) else _words_result(pending)
+
+
+def _msm_result(name: str, xm, ym, inf8, km) -> tuple:
+    return msm_partial_result(_msm_start(name, xm, ym, inf8, km))
 
 
 def schnorr_msm_is_infinity(xm, ym, inf8, km) -> np.ndarray:
@@ -1529,6 +1541,13 @@ def msm_partial_point(xm, ym, inf8, km) -> tuple:
     canonical, (1, 1, 0) at infinity. Inputs as
     schnorr_msm_is_infinity's."""
     return _msm_result("msm_partial", xm, ym, inf8, km)
+
+
+def msm_partial_launch(xm, ym, inf8, km):
+    """msm_partial_point's first half, for shards on streams of their own
+    (parallel/sig_shard): launches the partial sum on the current stream
+    and returns without waiting; ``msm_partial_result`` reads it."""
+    return _msm_start("msm_partial", xm, ym, inf8, km)
 
 
 # ---- the bit ladder (K8) -----------------------------------------------------

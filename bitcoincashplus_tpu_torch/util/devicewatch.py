@@ -27,7 +27,15 @@ Counterpart of the reference's util/devicewatch.py. What carries over:
   of ops/cuda_build (a library there whose hash matches is loaded with no
   nvcc run).
 
-Left out on purpose: the ``jax.profiler`` hooks.
+- **On-demand profiler** (``start_profile``/``stop_profile``: the
+  ``startprofile``/``stopprofile`` RPCs): ``torch.profiler`` (CPU
+  activity, and CUDA activity under the CUDA switch: the card's kernels
+  by name) around the window, dumped as a Chrome trace,
+  ``<dir>/trace.json``. The profiler lives on a thread of its own for the
+  window: torch's profiler must be stopped on the thread that started
+  it, and the RPCs arrive on different threads.
+- ``snapshot()`` (gettpuinfo's ``device`` section) and ``reset()``, with
+  the reference's keys.
 
 No CUDA work at import: the memory collector reads CUDA state only after
 something else initialised it.
@@ -280,6 +288,105 @@ def transfer_snapshot() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# On-demand torch.profiler wrapper (startprofile / stopprofile RPCs)
+# ---------------------------------------------------------------------------
+
+_PROFILE = {"active": False, "path": None, "t0": 0.0, "dumps": 0}
+# the window's thread: its stop event, its "started" and "done" events and
+# the error it met, if any
+_PROFILER: dict = {}
+
+
+def _profile_window(logdir: str, activities: list, ctl: dict) -> None:
+    """The profiler's thread: start, wait for the stop event, stop and
+    write <logdir>/trace.json (torch's profiler must stop on the thread
+    that started it)."""
+    from torch.profiler import profile
+
+    try:
+        prof = profile(activities=activities)
+        prof.start()
+    except BaseException as e:  # noqa: BLE001 — handed to start_profile
+        ctl["error"] = e
+        ctl["started"].set()
+        return
+    ctl["started"].set()
+    ctl["stop"].wait()
+    try:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    except BaseException as e:  # noqa: BLE001 — handed to stop_profile
+        ctl["error"] = e
+    ctl["done"].set()
+
+
+def start_profile(logdir: str) -> dict:
+    """Start a torch.profiler trace into ``logdir`` (CPU activity, and
+    CUDA activity under the CUDA switch; ``stop_profile`` writes
+    <logdir>/trace.json). Raises RuntimeError when a profile is already
+    running (the profiler is process-global)."""
+    from torch.profiler import ProfilerActivity
+
+    from ..ops import cuda_build
+
+    with _LOCK:
+        if _PROFILE["active"]:
+            raise RuntimeError(
+                f"profiler already active (dir: {_PROFILE['path']})")
+        _PROFILE["active"] = True
+        _PROFILE["path"] = logdir
+        _PROFILE["t0"] = time.monotonic()
+    try:
+        os.makedirs(logdir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if cuda_build.require_device("the profiler").type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        ctl = {"stop": threading.Event(), "started": threading.Event(),
+               "done": threading.Event(), "error": None}
+        threading.Thread(target=_profile_window, name="bcp-profiler",
+                         args=(logdir, activities, ctl), daemon=True).start()
+        ctl["started"].wait()
+        if ctl["error"] is not None:
+            raise ctl["error"]
+        _PROFILER.update(ctl)
+    except BaseException:
+        with _LOCK:
+            _PROFILE["active"] = False
+            _PROFILE["path"] = None
+        raise
+    return {"path": logdir, "active": True}
+
+
+def stop_profile() -> dict:
+    """Stop the running torch.profiler trace and write its Chrome trace;
+    returns {path, seconds}. Raises RuntimeError when no profile is
+    running."""
+    with _LOCK:
+        if not _PROFILE["active"]:
+            raise RuntimeError("profiler not active (startprofile first)")
+        path = _PROFILE["path"]
+        seconds = time.monotonic() - _PROFILE["t0"]
+    try:
+        _PROFILER["stop"].set()
+        _PROFILER["done"].wait()
+        if _PROFILER["error"] is not None:
+            raise _PROFILER["error"]
+    finally:
+        _PROFILER.clear()
+        with _LOCK:
+            _PROFILE["active"] = False
+            _PROFILE["path"] = None
+            _PROFILE["dumps"] += 1
+    return {"path": path, "seconds": round(seconds, 3)}
+
+
+def profile_snapshot() -> dict:
+    with _LOCK:
+        return {"active": _PROFILE["active"], "path": _PROFILE["path"],
+                "dumps": _PROFILE["dumps"]}
+
+
+# ---------------------------------------------------------------------------
 # Device-memory collector (CUDA only, once initialised)
 # ---------------------------------------------------------------------------
 
@@ -521,3 +628,38 @@ def _collect_watchdog():
 
 
 tm.register_collector("devicewatch_watchdog", _collect_watchdog)
+
+
+# ---------------------------------------------------------------------------
+# gettpuinfo's "device" section
+# ---------------------------------------------------------------------------
+
+
+def snapshot() -> dict:
+    """The device-lane monitor's full state, with the reference's keys:
+    per-program launch/shape accounting, transfer totals, the compile
+    cache, the profiler state and the watchdog. ``unattributed_compiles``
+    stays zero: the port compiles nothing outside a watched launch (its
+    one build, the kernel libraries', runs inside the first)."""
+    with _LOCK:
+        programs = {name: pw for name, pw in sorted(_PROGRAMS.items())}
+    return {
+        "programs": {name: pw.snapshot() for name, pw in programs.items()},
+        "transfer_bytes": transfer_snapshot(),
+        "unattributed_compiles": {"compile_s": 0.0, "events": 0},
+        "compilation_cache": compile_cache_snapshot(),
+        "profiler": profile_snapshot(),
+        "watchdog": WATCHDOG.snapshot(),
+    }
+
+
+def reset() -> None:
+    """Test isolation: drop program watches, transfer tallies, and
+    watchdog registrations (the global families live in the telemetry
+    registry and are zeroed by telemetry.reset())."""
+    with _LOCK:
+        _PROGRAMS.clear()
+        _TRANSFERS.clear()
+    with WATCHDOG._lock:
+        WATCHDOG._entries.clear()
+        WATCHDOG._beat_totals.clear()

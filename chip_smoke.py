@@ -3,6 +3,8 @@
 NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded   # phases 1 and 7a-7c alone, on every
+                                      # card of a host with several
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -178,9 +180,52 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6c. gate   — the host compute_merkle_root beside the device leg end to
              end (ops/dispatch.merkle_root) at 128, 512, 1024 and 4096
              leaves.
-7. report  — a JSON line of the fifteen kernel entries with launches on
-             their paths, errors, times and bounds; the card's name and
-             power limit; last, {"ok": true, "device": {...}}.
+7a. shard sigs — the sharded signature path (parallel/sig_shard, K13):
+             verify_batch_sharded on 8,190 records (valid, forged,
+             GLV-degenerate and w4-degenerate lanes, q_inf lanes of an
+             out-of-range r) under glv and w4, at chip_mesh() (every card:
+             width 1 here) and on [cuda:0] * 4 (four shards on the card,
+             each on a stream of its own), counts zeroed just before each
+             call and read just after: one launch of the per-shard entry
+             a shard at the shard's bucket (8192, or 2048 a shard), no
+             other launch, no fallback; verdicts equal to the oracle's and
+             to the unsharded dispatch_batch's. The GLV host-split route
+             through _sharded_glv at both layouts. Then, for each sharded
+             program (glv_dev_verify, glv_verify, w4_verify_bytes a shard)
+             on the same packed arrays: the call's wall at each layout
+             beside the unsharded wrapper's, the plain version's wall and
+             the bound.
+7b. shard msm — msm_is_infinity_sharded on the terms of msm_inputs at
+             4,096 and 16,384 (the buckets of 2,046 and 8,190 Schnorr
+             signatures), sums nonzero and zero, at both layouts: one
+             msm_partial launch a shard, the verdict equal to
+             schnorr_msm_is_infinity's and the host's sum; 100 terms on
+             four shards, two of them padding alone (at infinity, skipped
+             by the fold), each partial the host's sum of its shard; the
+             walls beside the unsharded msm_partial_point's, plain, bound.
+7c. shard nonces — sweep_header_sharded on a testnet difficulty-1
+             header whose first hit lies in [2^24, 2^27), at both layouts:
+             from nonce 0 the nonce equals the exact engine's first hit;
+             from 2^32 - 2^28 over 2^30 nonces (stripes past 2^32 wrap)
+             each shard's tiles and hit equal one unsharded launch over
+             its stripe; one sweep_exact launch a shard; a testnet block
+             mined through generate_blocks(..., sweep=sweep_header_sharded)
+             at each layout; walls, plain, bound.
+8. daemon  — python -m bitcoincashplus_tpu_torch.cli.bcpd -regtest
+             -reindex -residentminer=off on a copy of phase 5d's chain, on
+             the card under the default GLV, driven over JSON-RPC:
+             getblockchaininfo and gettxoutsetinfo (height, tip and muhash
+             equal to phase 5d's -tpu=0 run), gettpuinfo (the card's name,
+             glv, device programs dispatched, every fallback counter 0),
+             startprofile, submitblock of the tampered tip (the tip stays;
+             sent again, "duplicate-invalid") and of the good tip (the
+             tip moves), stopprofile (the Chrome trace names a port
+             kernel), one bcp_cli getblockcount, generatetoaddress 1 (the
+             h7-dispatch engine), stop (exit 0).
+9. report  — a JSON line of the kernel entries (the fifteen kernels and
+             the five sharded programs) with launches on their paths,
+             errors, times and bounds; the card's name and power limit;
+             last, {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 false or the port package is not importable.
@@ -191,6 +236,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import shutil
 import statistics
 import subprocess
@@ -652,19 +698,14 @@ def kernel_case(entry: str, B: int, seed: int, clock_hz: float,
         err, n_degen = check(*out, "wrapper")
         errs.append(err)
     if be:
-        u1w = S._expand_nibble_windows(tens[0].cpu()).T.numpy()
-        u2w = S._expand_nibble_windows(tens[1].cpu()).T.numpy()
-        in_bytes = B * (6 * 32 + 2)
+        b = verify_bound(entry, arrays, B, clock_hz)
     else:
-        u1w, u2w = arrays["u1"].T, arrays["u2"].T
-        in_bytes = B * (2 * 64 * 4 + 4 * 20 * 4 + 2)
-    imads = imad_count(u1w, u2w, arrays["q_inf"] != 0)
-    ops_ms = imads / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3
-    bytes_ms = (in_bytes + 2 * B) / HBM_BYTES_S * 1e3
-    return {"B": B, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "imads": imads, "max_abs_err": max(errs), "degen_lanes": n_degen,
+        imads = imad_count(arrays["u1"].T, arrays["u2"].T,
+                           arrays["q_inf"] != 0)
+        b = {**bound(imads, B * (2 * 64 * 4 + 4 * 20 * 4 + 2) + 2 * B,
+                     clock_hz), "imads": imads}
+    return {"B": B, "ms": ms, "plain_ms": plain_ms, **b,
+            "max_abs_err": max(errs), "degen_lanes": n_degen,
             "sigs_per_s": B / (ms / 1e3), "shape": shape,
             "times": {f"{t}x{b}": v for (t, b), v in times.items()}}
 
@@ -730,9 +771,36 @@ def glv_case(entry: str, B: int, seed: int, clock_hz: float,
         ms, out = time_once(lambda: wrapper(*tens), dev)
         err, n_degen = check(*out, "wrapper")
         errs.append(err)
+    return {"B": B, "ms": ms, "plain_ms": plain_ms,
+            **verify_bound(entry, arrays, B, clock_hz),
+            "max_abs_err": max(errs), "degen_lanes": n_degen,
+            "sigs_per_s": B / (ms / 1e3), "shape": shape,
+            "chain_shape": chain, "chain_ms": times.get(chain),
+            "warps_per_scheduler": warps_per_scheduler(B, shape),
+            "times": {f"{t}x{b}": v for (t, b), v in times.items()}}
+
+
+def verify_bound(entry: str, arrays: dict, B: int, clock_hz: float) -> dict:
+    """The bound of a byte-matrix verify entry (w4_verify_bytes,
+    glv_dev_verify, glv_verify) on these inputs (numpy arrays named as in
+    glv_case): the IMADs this data needs (imad_count, glv_imad_count) over
+    the card's IMAD rate, against the bytes in and out over HBM (the GLV
+    comb read once)."""
+    import numpy as np
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    if entry == "w4_verify_bytes":
+        u1w, u2w = (S._expand_nibble_windows(torch.from_numpy(
+            np.ascontiguousarray(arrays[k]))).T.numpy() for k in ("u1", "u2"))
+        imads = imad_count(u1w, u2w, arrays["q_inf"] != 0)
+        return {**bound(imads, B * (6 * 32 + 2) + 2 * B, clock_hz),
+                "imads": imads}
+    dev_split = entry == "glv_dev_verify"
     if dev_split:
-        m1, _n1, m2, _n2 = (t.cpu().numpy() for t in S.glv_decompose_plain(
-            torch.cat([tens[0], tens[1]]).cpu()))
+        m1, _n1, m2, _n2 = (t.numpy() for t in S.glv_decompose_plain(
+            torch.from_numpy(np.concatenate([arrays["u1"], arrays["u2"]]))))
         ladder_b = [np.unpackbits(m[B:], axis=1, bitorder="little")
                     for m in (m1, m2)]
         comb_bytes = np.stack([m1[:B], m2[:B]], 2).reshape(B, 32)
@@ -748,17 +816,9 @@ def glv_case(entry: str, B: int, seed: int, clock_hz: float,
     ladder = np.stack(wins, 2).reshape(B, 64)
     imads = glv_imad_count(ladder, comb_bytes, arrays["q_inf"] != 0,
                            dev_split)
-    ops_ms = imads / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3
     comb_bytes_total = 3 * 16 * 512 * 32  # the comb, read once
-    bytes_ms = (in_bytes + comb_bytes_total + 2 * B) / HBM_BYTES_S * 1e3
-    return {"B": B, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "imads": imads, "max_abs_err": max(errs), "degen_lanes": n_degen,
-            "sigs_per_s": B / (ms / 1e3), "shape": shape,
-            "chain_shape": chain, "chain_ms": times.get(chain),
-            "warps_per_scheduler": warps_per_scheduler(B, shape),
-            "times": {f"{t}x{b}": v for (t, b), v in times.items()}}
+    return {**bound(imads, in_bytes + comb_bytes_total + 2 * B, clock_hz),
+            "imads": imads}
 
 
 def team_name(team: int) -> str:
@@ -1130,7 +1190,8 @@ def slice_phase(workdir: str, sigs: int = CHAIN_SIGS,
             for kern in PATH_ORDER]
     return {"gen": {k: v for k, v in gen.items() if "tip" not in k},
             "cpu": {k: cpu[k] for k in ("digest", "best", "wall_s")},
-            "runs": runs, "drills": drill_phase()}
+            "runs": runs, "drills": drill_phase(),
+            "tips": (gen["tampered_tip"], gen["good_tip"])}
 
 
 # ---- the sweep kernels ------------------------------------------------------
@@ -3027,11 +3088,774 @@ def node_phase(chain_dir: str, sigs: int) -> dict:
     return {"runs": rows, "checks": checks}
 
 
+# ---- the sharded paths (K13) ---------------------------------------------------
+
+# the sharded signature batch: dispatch_packed's slice, one 8192-lane bucket
+# at width 1 and four of 2048 on [cuda:0] * 4
+SHARD_SIGS = 8190
+# the sharded MSM's inputs: msm_inputs at the buckets of 2,046 and 8,190
+# Schnorr signatures (2n + 1 terms)
+SHARD_MSM = ((4096, 2046), (16384, 8190))
+SHARD_REPS = 10
+# the sharded sweep's wrapping window: 2^30 nonces from 2^32 - 2^28 (at
+# width 4, stripes of 2^28: the first below 2^32, the rest past the wrap)
+WRAP_START, WRAP_NONCES = (1 << 32) - (1 << 28), 1 << 30
+
+
+def shard_layouts(dev) -> dict:
+    """The layouts the sharded phases run: the default (chip_mesh(): every
+    card, one on a one-card host) and four shards on the first card, each
+    on a stream of its own."""
+    import torch
+
+    from bitcoincashplus_tpu_torch.parallel import mesh
+
+    if dev.type == "cpu":  # the rehearsal: one shard, and four
+        return {"chip_mesh()": mesh.chip_mesh(1),
+                "[cpu] * 4": [torch.device("cpu")] * 4}
+    return {"chip_mesh()": mesh.chip_mesh(),
+            "[cuda:0] * 4": [torch.device("cuda", 0)] * 4}
+
+
+def card(dev, launches):
+    """The launches a check expects: ``launches`` on the card; none on a
+    CPU device, whose plain versions count nothing (the rehearsal)."""
+    return launches if dev.type == "cuda" else type(launches)()
+
+
+def wall_ms(fn, dev, reps: int) -> float:
+    """Median host ms of one synchronised call over ``reps`` calls after a
+    warm-up (the sharded calls end in a host fold, so the host clock)."""
+    fn()
+    return statistics.median(time_once(fn, dev)[0] for _ in range(reps))
+
+
+def _fallbacks() -> dict:
+    from bitcoincashplus_tpu_torch.ops import dispatch
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+
+    st = E.STATS.snapshot()
+    return {"cpu_fallback_sigs": st["cpu_fallback_sigs"],
+            "fault_fallback_sigs": st["fault_fallback_sigs"],
+            "breaker_fallback_calls": sum(
+                b["fallback_calls"] for b in dispatch.snapshot().values())}
+
+
+def shard_bucket(n: int, width: int) -> int:
+    """verify_batch_sharded's lanes a shard: 1024 and up, by 1024."""
+    return max(1024, ((n + width - 1) // width + 1023) // 1024 * 1024)
+
+
+def shard_records(n: int, seed: int) -> list:
+    """glv_records (valid, forged every 4th, GLV-degenerate every 89th,
+    w4-degenerate every 97th) with an out-of-range r (a q_inf lane) every
+    37th lane from lane 3."""
+    from bitcoincashplus_tpu_torch.script.interpreter import SigCheckRecord
+
+    recs = glv_records(n, seed)
+    for i in range(3, n, 37):
+        r = recs[i]
+        recs[i] = SigCheckRecord(r.pubkey, 0, r.s, r.msg_hash)
+    return recs
+
+
+# the sharded verify programs: (name, the per-shard entry, the pack, the
+# reference function replaced)
+SHARD_VERIFY = (
+    ("sharded_glv_dev", "glv_dev_verify", "w4_bytes",
+     "bitcoincashplus_tpu/parallel/sig_shard.py:101"),
+    ("sharded_glv", "glv_verify", "glv",
+     "bitcoincashplus_tpu/parallel/sig_shard.py:65"),
+    ("sharded_w4", "w4_verify_bytes", "w4_bytes",
+     "bitcoincashplus_tpu/parallel/sig_shard.py:133"),
+)
+GLV_NAMES = ("d1", "d2", "sg1", "sg2", "s1", "s2", "ydiff", "qx", "qy",
+             "q_inf", "r0", "rn", "wrap")
+W4_NAMES = ("u1", "u2", "qx", "qy", "q_inf", "r0", "rn", "wrap")
+
+
+def shard_sig_phase(clock_hz: float, n: int = SHARD_SIGS, seed: int = 1300,
+                    reps: int = SHARD_REPS) -> dict:
+    """Phase 7a: verify_batch_sharded on n records (shard_records) under
+    glv and w4 at each layout of shard_layouts, counts zeroed just before
+    each call and read just after: one launch of the per-shard entry a
+    shard at the shard's bucket, no other launch, no fallback; verdicts
+    equal to the oracle's and the unsharded dispatch_batch's. The GLV
+    host-split route through _sharded_glv at both layouts (its verdicts
+    after the host re-check equal to the oracle's). Then per sharded
+    program on the same packed arrays: the shard-level call's wall at
+    each layout beside the unsharded wrapper's at the same lanes (both:
+    host to device, launches, device to host, fold), the plain version's
+    wall, and the per-shard entry's bound on these inputs."""
+    import numpy as np
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import cuda_build
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+    from bitcoincashplus_tpu_torch.parallel import sig_shard
+
+    dev = cuda_build.device()
+    lays = shard_layouts(dev)
+    recs = shard_records(n, seed)
+    oracle = host_oracle(recs)
+    unsharded = {k: np.asarray(E.dispatch_batch(recs, backend="device",
+                                                kernel=k).result())
+                 for k in ("glv", "w4")}
+    runs, checks = [], {}
+    for kern, entry in (("glv", "glv_dev_verify"), ("w4", "w4_verify_bytes")):
+        for lname, lay in lays.items():
+            width = len(lay)
+            per = shard_bucket(n, width)
+            _zero_counts()
+            t0 = time.monotonic()
+            got = sig_shard.verify_batch_sharded(recs, width, kernel=kern,
+                                                 devices=lay)
+            wall = time.monotonic() - t0
+            counts = _read_counts()
+            key = f"{kern} {lname}"
+            runs.append({"kernel": kern, "layout": lname, "width": width,
+                         "wall_s": wall, "launches": {
+                             k: v for k, v in counts["launches"].items() if v},
+                         "launch_shapes": counts["launch_shapes"],
+                         "degenerate_rechecks":
+                             counts["stats"]["degenerate_rechecks"],
+                         "fallbacks": _fallbacks()})
+            checks.update({
+                f"{key} oracle": np.array_equal(got, oracle),
+                f"{key} unsharded": np.array_equal(got, unsharded[kern]),
+                f"{key} one launch a shard": counts["launch_shapes"]
+                == card(dev, [[entry, per, width]]),
+                f"{key} no fallback": not any(_fallbacks().values())})
+    # the host-split route: the shard-level function itself
+    host = {}
+    for lname, lay in lays.items():
+        width = len(lay)
+        per = shard_bucket(n, width)
+        arrays = E.pack_records_glv(recs, per * width)
+        _zero_counts()
+        ok, degen, fails = sig_shard._sharded_glv(*arrays, devices=lay)
+        counts = _read_counts()
+        final = np.where(degen[:n], oracle, ok[:n])
+        host[lname] = {"launch_shapes": counts["launch_shapes"],
+                       "degen_lanes": int(degen[:n].sum()), "fails": fails}
+        checks.update({
+            f"glv host split {lname} oracle": np.array_equal(final, oracle),
+            f"glv host split {lname} one launch a shard":
+                counts["launch_shapes"] == card(dev, [["glv_verify", per,
+                                                       width]]),
+            f"glv host split {lname} degen lanes": bool(degen[:n].any())})
+    # the timing rows, per sharded program, on its packed arrays (each
+    # layout's lanes: 8,192 at both for 8,190 records) beside the
+    # unsharded wrapper at the width-1 bucket
+    B = shard_bucket(n, 1)
+    progs = {}
+    for name, entry, pack, replaces in SHARD_VERIFY:
+        packer = (E.pack_records_glv if pack == "glv"
+                  else E.pack_records_w4_bytes)
+        shard_fn = getattr(sig_shard, "_" + name)
+        wrapper, plain = {
+            "glv_dev_verify": (S.ecdsa_verify_batch_glv_dev,
+                               S.glv_dev_verify_plain),
+            "glv_verify": (S.ecdsa_verify_batch_glv, S.glv_verify_plain),
+            "w4_verify_bytes": (S.ecdsa_verify_batch_pallas_w4_bytes,
+                                S.w4_verify_bytes_plain)}[entry]
+        ms = {}
+        for lname, lay in lays.items():
+            lanes = shard_bucket(n, len(lay)) * len(lay)
+            packed = packer(recs, lanes)
+            ms[lname] = wall_ms(lambda lay=lay, packed=packed: shard_fn(
+                *packed, devices=lay), dev, reps)
+        packed = packer(recs, B)
+        arrays = dict(zip(GLV_NAMES if pack == "glv" else W4_NAMES,
+                          [np.ascontiguousarray(a) for a in packed]))
+        on_dev = lambda: [torch.from_numpy(a).to(dev) for a in packed]
+        ms["unsharded"] = wall_ms(
+            lambda: [t.cpu() for t in wrapper(*on_dev())], dev, reps)
+        tens = on_dev()
+        plain_ms, plain_out = time_once(lambda: plain(*tens), dev)
+        ok_k, dg_k = wrapper(*tens)
+        same = (np.array_equal(dg_k.cpu().numpy(), plain_out[1].cpu().numpy())
+                and np.array_equal(ok_k.cpu().numpy()[~dg_k.cpu().numpy()],
+                                   plain_out[0].cpu().numpy()[
+                                       ~dg_k.cpu().numpy()]))
+        checks[f"{name} unsharded equal to the plain version"] = same
+        progs[name] = {"entry": entry, "replaces": replaces, "B": B,
+                       "ms": ms, "plain_ms": plain_ms,
+                       **verify_bound(entry, arrays, B, clock_hz)}
+    return {"n": n, "runs": runs, "host_split": host, "programs": progs,
+            "checks": checks}
+
+
+def _terms(xm, ym, inf8, km) -> list:
+    """The (x, y, k) terms of packed MSM arrays, flagged lanes left out
+    (they add nothing)."""
+    return [(int.from_bytes(xm[j].tobytes(), "big"),
+             int.from_bytes(ym[j].tobytes(), "big"),
+             int.from_bytes(km[j].tobytes(), "big"))
+            for j in range(len(inf8)) if not inf8[j]]
+
+
+def logged_terms(m: int, seed: int) -> tuple:
+    """m terms k_j (c + j) G of known discrete logs (consecutive, so the
+    points are a chain of adds), and those logs."""
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+
+    rng = random.Random(seed)
+    c = rng.randrange(1, O.N - m)
+    pt, terms = O.point_mul(c, O.G), []
+    for _ in range(m):
+        terms.append((pt[0], pt[1], rng.randrange(1, O.N)))
+        pt = O.point_add(pt, O.G)
+    return terms, [c + j for j in range(m)]
+
+
+def logged_sum(terms, logs):
+    """The host's sum of terms of known logs (None: infinity)."""
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+
+    total = sum(k * lg for (_, _, k), lg in zip(terms, logs)) % O.N
+    return O.point_mul(total, O.G) if total else None
+
+
+def shard_msm_phase(clock_hz: float, sizes=SHARD_MSM, seed: int = 1400,
+                    reps: int = SHARD_REPS) -> dict:
+    """Phase 7b: msm_is_infinity_sharded on the terms of msm_inputs at
+    each size (its sum nonzero and zero) at each layout, counts zeroed
+    just before each call and read just after: one msm_partial launch a
+    shard, the verdict equal to schnorr_msm_is_infinity's on the packed
+    inputs and to the host's sum. 100 terms at width 4 through
+    _sharded_msm: shards 2 and 3 hold only padding and are at infinity,
+    each partial the host's sum of its shard's terms. Then at the first
+    size: the shard-level call's wall (launches and the partials read
+    back) at each layout beside the unsharded msm_partial_point's on the
+    same terms, the plain version's wall, and the bound (msm_work of each
+    shard's pack)."""
+    import torch
+
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+    from bitcoincashplus_tpu_torch.ops import cuda_build
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+    from bitcoincashplus_tpu_torch.parallel import sig_shard
+
+    dev = cuda_build.device()
+    lays = shard_layouts(dev)
+    runs, checks = [], {}
+    for M, sigs in sizes:
+        for zero_sum in (False, True):
+            xm, ym, inf8, km, want = msm_inputs(M, seed + M, zero_sum)
+            terms = _terms(xm, ym, inf8, km)
+            one = int(S.schnorr_msm_is_infinity(
+                *[torch.from_numpy(a).to(dev) for a in (xm, ym, inf8, km)])[0])
+            for lname, lay in lays.items():
+                width = len(lay)
+                _zero_counts()
+                t0 = time.monotonic()
+                got = sig_shard.msm_is_infinity_sharded(terms, width,
+                                                        devices=lay)
+                wall = time.monotonic() - t0
+                counts = _read_counts()
+                per = E._msm_bucket_for(-(-len(terms) // width))
+                key = f"M={M} zero={zero_sum} {lname}"
+                runs.append({"M": M, "sigs": sigs, "terms": len(terms),
+                             "zero_sum": zero_sum, "layout": lname,
+                             "wall_s": wall, "verdict": got,
+                             "launch_shapes": counts["launch_shapes"],
+                             "fallbacks": _fallbacks()})
+                checks.update({
+                    f"{key} no fallback": not any(_fallbacks().values()),
+                    f"{key} host": got is (want is None) is zero_sum,
+                    f"{key} unsharded": int(got) == one,
+                    f"{key} one launch a shard": counts["launch_shapes"]
+                    == card(dev, [["msm_partial", per, width]])})
+    # shards of padding alone: 100 terms at width 4 (bucket 64 a shard)
+    terms, logs = logged_terms(100, seed)
+    four = list(lays.values())[-1]
+    parts = sig_shard._sharded_msm(*E._msm_pack(terms, 256), devices=four)
+    pad = {"infinity": [inf for _, inf in parts]}
+    checks["padding shards at infinity"] = pad["infinity"] == \
+        [False, False, True, True]
+    for c, ((x, y, z), _inf) in enumerate(parts[:2]):
+        zi = pow(z, O.P - 2, O.P)
+        checks[f"padding case shard {c} partial"] = \
+            (x * zi * zi % O.P, y * zi ** 3 % O.P) == logged_sum(
+                terms[64 * c:64 * (c + 1)], logs[64 * c:64 * (c + 1)])
+    checks["padding case verdict"] = \
+        sig_shard.msm_is_infinity_sharded(terms, 4, devices=four) is \
+        (logged_sum(terms, logs) is None)
+    # the timing row at the first size, nonzero sum
+    M = sizes[0][0]
+    xm, ym, inf8, km, _want = msm_inputs(M, seed + M, False)
+    terms = _terms(xm, ym, inf8, km)
+    ms, work = {}, {}
+    for lname, lay in lays.items():
+        width = len(lay)
+        per = E._msm_bucket_for(-(-len(terms) // width))
+        packed = E._msm_pack(terms, per * width)
+        ms[lname] = wall_ms(lambda lay=lay, packed=packed:
+                            sig_shard._sharded_msm(*packed, devices=lay),
+                            dev, reps)
+        work[lname] = [msm_work(packed[3][c * per:(c + 1) * per],
+                                packed[2][c * per:(c + 1) * per])
+                       for c in range(width)]
+    packed = E._msm_pack(terms, E._msm_bucket_for(len(terms)))
+    ms["unsharded"] = wall_ms(lambda: S.msm_partial_point(
+        *[torch.from_numpy(a).to(dev) for a in packed]), dev, reps)
+    ts = S._msm_tensors(*[torch.from_numpy(a).to(dev) for a in packed])
+    plain_ms, _pt = time_once(lambda: S.msm_accumulate_plain(*ts), dev)
+    lname1 = next(iter(lays))
+    imads = sum(w["imads"] for w in work[lname1])
+    nbytes = packed[0].shape[0] * (3 * 32 + 1) + 4 * S.MSM_WORDS
+    row = {"M": packed[0].shape[0], "terms": len(terms), "ms": ms,
+           "plain_ms": plain_ms, "imads": imads,
+           "imads_by_layout": {k: sum(w["imads"] for w in v)
+                               for k, v in work.items()},
+           **bound(imads, nbytes, clock_hz)}
+    return {"runs": runs, "padding": pad, "program": row, "checks": checks}
+
+
+def diff1_header(lo: int, hi: int, seed: int, tile: int,
+                 bits: int = DIFF1_BITS) -> tuple:
+    """A testnet header at nBits ``bits`` (the testnet genesis header, at
+    difficulty 1, with a seeded merkle root) whose first hit from nonce 0,
+    by the exact engine (ops/miner.sweep_header), lies in [lo, hi);
+    (header, target, first hit, headers tried)."""
+    from bitcoincashplus_tpu_torch.consensus.params import select_params
+    from bitcoincashplus_tpu_torch.consensus.pow import compact_to_target
+    from bitcoincashplus_tpu_torch.ops import miner
+
+    base = select_params("test").genesis.header.serialize()
+    base = base[:72] + bits.to_bytes(4, "little") + base[76:]
+    target = compact_to_target(bits)[0]
+    rng = random.Random(seed)
+    for tried in range(1, 4097):
+        hdr = base[:36] + rng.randbytes(32) + base[68:]
+        first, _ = miner.sweep_header(hdr, target, 0, hi, tile)
+        if first is not None and first >= lo:
+            return hdr, target, first, tried
+    raise AssertionError(f"no header with a first hit in [{lo}, {hi})")
+
+
+def shard_nonce_phase(clock_hz: float, ops_exact: int, lo: int = 1 << 24,
+                      hi: int = 1 << 27, tile: int = 1 << 16,
+                      wrap=(WRAP_START, WRAP_NONCES), mine: bool = True,
+                      bits: int = DIFF1_BITS, reps: int = 3) -> dict:
+    """Phase 7c: sweep_header_sharded on a testnet difficulty-1 header
+    (diff1_header) at each layout, counts zeroed just before each call
+    and read just after (one sweep_exact launch a shard): from nonce 0
+    over the whole space, the nonce equal to the exact engine's first
+    hit; from wrap[0] over wrap[1] nonces (stripes past 2^32 wrap), each
+    shard's tiles and hit equal to one unsharded launch over its stripe
+    by the stripe rule, and the fold's nonce the least of them. Then one
+    testnet block mined at each layout through generate_blocks(...,
+    sweep=sweep_header_sharded), connected and host-verified. The walls:
+    the from-0 call at each layout beside the unsharded exact engine's,
+    the wrapping window at each layout, the plain version's on the
+    width-1 launch; the bound: ALU-pipe instructions a nonce times the
+    nonces that launch swept."""
+    import functools
+
+    from bitcoincashplus_tpu_torch.ops import cuda_build, miner
+    from bitcoincashplus_tpu_torch.ops import sha256_sweep as SW
+    from bitcoincashplus_tpu_torch.parallel import nonce_shard
+
+    dev = cuda_build.device()
+    lays = shard_layouts(dev)
+    hdr, target, first, tried = diff1_header(lo, hi, 1500, tile, bits)
+    runs, checks = [], {}
+
+    def sharded(lname, lay, start, budget):
+        _zero_counts()
+        SW.reset_launch_counts()
+        t0 = time.monotonic()
+        out = nonce_shard.sweep_header_sharded(
+            hdr, target, start, budget, tile=tile, devices=lay,
+            return_per_chip=True)
+        wall = time.monotonic() - t0
+        checks[f"{lname} {start} no fallback"] = not any(
+            _fallbacks().values())
+        return out, wall, dict(SW.LAUNCHES)
+
+    tmpl = SW.header_template(hdr, dev)
+    tgt = miner.target_tensor(target, dev)
+    for lname, lay in lays.items():
+        width = len(lay)
+        (nonce, hashes, per_chip), wall, launches = sharded(lname, lay, 0,
+                                                            1 << 32)
+        runs.append({"case": "from 0", "layout": lname, "nonce": nonce,
+                     "hashes": hashes, "per_chip": per_chip, "wall_s": wall,
+                     "launches": launches})
+        checks[f"from 0 {lname} first hit"] = nonce == first
+        checks[f"from 0 {lname} one launch a shard"] = \
+            launches["sweep_exact"] == card(dev, width)
+        start, budget = wrap
+        (nonce, hashes, per_chip), wall, launches = sharded(lname, lay,
+                                                            start, budget)
+        n_tiles = max(1, budget // width // tile)
+        stripes = [(start + c * n_tiles * tile) & 0xFFFFFFFF
+                   for c in range(width)]
+        ref = [miner.sweep(tmpl, tgt, st, n_tiles, tile).tolist()
+               for st in stripes]
+        hits = [nc for f, nc, _ in ref if f]
+        runs.append({"case": "wrap", "layout": lname, "stripes": stripes,
+                     "nonce": nonce, "hashes": hashes, "per_chip": per_chip,
+                     "stripe_rule": ref, "wall_s": wall,
+                     "launches": launches})
+        checks[f"wrap {lname} stripe rule"] = (
+            per_chip == [t for _, _, t in ref]
+            and nonce == (min(hits) if hits else None)
+            and hashes == sum(per_chip) * tile)
+        checks[f"wrap {lname} one launch a shard"] = \
+            launches["sweep_exact"] == card(dev, width)
+    # the walls and the bound
+    ms = {f"from 0 {lname}": wall_ms(
+        lambda lay=lay: nonce_shard.sweep_header_sharded(
+            hdr, target, 0, 1 << 32, tile=tile, devices=lay), dev, reps)
+        for lname, lay in lays.items()}
+    ms["from 0 unsharded"] = wall_ms(
+        lambda: miner.sweep_header(hdr, target, 0, 1 << 32, tile), dev, reps)
+    ms.update({f"wrap {lname}": wall_ms(
+        lambda lay=lay: nonce_shard.sweep_header_sharded(
+            hdr, target, wrap[0], wrap[1], tile=tile, devices=lay), dev,
+        reps) for lname, lay in lays.items()})
+    ms["wrap unsharded"] = wall_ms(lambda: miner.sweep(
+        tmpl, tgt, wrap[0], wrap[1] // tile, tile).tolist(), dev, reps)
+    n_tiles = (1 << 32) // tile
+    plain_ms, plain = time_once(lambda: miner.sweep_exact_plain(
+        tmpl, tgt, 0, n_tiles, tile).tolist(), dev)
+    kernel = miner.sweep(tmpl, tgt, 0, n_tiles, tile).tolist()
+    checks["from 0 plain version equal"] = plain == kernel
+    nonces = kernel[2] * tile
+    program = {"header_tried": tried, "first_hit": first, "ms": ms,
+               "plain_ms": plain_ms, "nonces": nonces,
+               "ops_per_nonce": ops_exact,
+               **bound(ops_exact * nonces, 4 * 64 + 32 + 32, clock_hz)}
+    blocks = {}
+    if mine:
+        blocks = {lname: mine_sharded(functools.partial(
+            nonce_shard.sweep_header_sharded, devices=lay), tile)
+            for lname, lay in lays.items()}
+        checks.update({f"mined {k}": v["connected"]
+                       for k, v in blocks.items()})
+    return {"runs": runs, "program": program, "blocks": blocks,
+            "checks": checks}
+
+
+def mine_sharded(sweep, tile: int) -> dict:
+    """One testnet block (difficulty 1) through generate_blocks with
+    ``sweep`` on a fresh in-memory ChainstateManager: connected, its hash
+    at or under its target; launches of sweep_exact counted."""
+    from bitcoincashplus_tpu_torch.consensus.params import select_params
+    from bitcoincashplus_tpu_torch.consensus.pow import compact_to_target
+    from bitcoincashplus_tpu_torch.mining.generate import generate_blocks
+    from bitcoincashplus_tpu_torch.ops import sha256_sweep as SW
+    from bitcoincashplus_tpu_torch.store.blockstore import MemoryBlockStore
+    from bitcoincashplus_tpu_torch.validation.chainstate import \
+        ChainstateManager
+    from bitcoincashplus_tpu_torch.validation.coins import MemoryCoinsView
+
+    params = select_params("test")
+    cs = ChainstateManager(params, MemoryCoinsView(), MemoryBlockStore(),
+                           script_verifier=None)
+    spk = bytes.fromhex("76a914") + bytes(range(20)) + bytes.fromhex("88ac")
+    SW.reset_launch_counts()
+    t0 = time.monotonic()
+    hashes = generate_blocks(cs, spk, 1, MAX_TRIES, tile=tile, sweep=sweep)
+    wall = time.monotonic() - t0
+    hdr = cs.block_index[hashes[0]].header if hashes else None
+    return {"wall_s": wall, "launches": SW.LAUNCHES["sweep_exact"],
+            "bits": f"{hdr.bits:#010x}" if hdr else None,
+            "connected": bool(hashes) and cs.tip().hash == hashes[0]
+            and hdr.bits == DIFF1_BITS
+            and _pow_hash(hdr.serialize(), hdr.nonce)
+            <= compact_to_target(hdr.bits)[0]}
+
+
+# ---- the daemon ------------------------------------------------------------------
+
+# the port's kernels as a profiler trace names them (csrc/*.cu)
+PORT_KERNEL_RE = (r"\b(glv|w4|msm|ladder|sweep|sha256d|merkle)_[a-z0-9_]*"
+                  r"kernel\b")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def daemon_phase(chain_dir: str, tips: tuple, record: dict,
+                 device: str = "cuda", timeout: float = 300.0) -> dict:
+    """Phase 8: the port's daemon as users start it, python -m
+    bitcoincashplus_tpu_torch.cli.bcpd -regtest -reindex on a copy of the
+    node phase's chain (``device``: its -device=, the card by default; the
+    default GLV kernel; -residentminer=off, so that generatetoaddress
+    takes the h7-dispatch engine), driven over JSON-RPC: getblockchaininfo
+    and gettxoutsetinfo (height, tip and muhash equal to ``record``, the
+    -tpu=0 run's); gettpuinfo (the card's name in devices, glv, the
+    watched programs, every fallback counter 0); startprofile, submitblock
+    of the tampered tip (the tip stays; sent again, "duplicate-invalid")
+    and of the good tip (accepted, the tip moves), stopprofile (the trace
+    names a port kernel); one bcp_cli getblockcount; generatetoaddress 1;
+    stop, and the process exits 0. The process is killed if anything
+    fails."""
+    import torch
+
+    from bitcoincashplus_tpu_torch.rpc.client import RPCClient
+
+    base = chain_dir + "_daemon"
+    shutil.rmtree(base, ignore_errors=True)
+    shutil.copytree(chain_dir, base)
+    rpc_port, p2p_port = _free_port(), _free_port()
+    flags = ["-regtest", f"-datadir={base}", f"-rpcport={rpc_port}",
+             f"-port={p2p_port}", "-residentminer=off", f"-device={device}"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    # the daemon's output goes to files: a pipe nobody drains would stall it
+    logs = {k: open(f"{base}.{k}", "w+b") for k in ("stdout", "stderr")}
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bitcoincashplus_tpu_torch.cli.bcpd",
+         "-reindex", *flags], cwd=REPO, env=env, stdout=logs["stdout"],
+        stderr=logs["stderr"])
+    out: dict = {"flags": " ".join(flags + ["-reindex"])}
+    checks = {}
+
+    def tail(k: str) -> str:
+        logs[k].seek(0)
+        return logs[k].read().decode(errors="replace")[-3000:]
+
+    try:
+        while "bcpd started" not in tail("stdout"):
+            if proc.poll() is not None or time.monotonic() - t0 > timeout:
+                raise AssertionError(f"bcpd did not start (rc {proc.poll()})"
+                                     f": {tail('stderr')}")
+            time.sleep(0.1)
+        out["started_s"] = time.monotonic() - t0
+        out["started_line"] = tail("stdout").strip().splitlines()[-1]
+        rpc = RPCClient(port=rpc_port, datadir=os.path.join(base, "regtest"),
+                        timeout=timeout)
+        info, utxo = rpc.getblockchaininfo(), rpc.gettxoutsetinfo()
+        tip = {"height": info["blocks"],
+               "best": bytes.fromhex(info["bestblockhash"])[::-1].hex(),
+               "muhash": utxo["muhash"]}
+        out["tip"] = tip
+        checks.update({f"{k} equal": tip[k] == record[k]
+                       for k in ("height", "best", "muhash")})
+        checks["bestblock equal"] = utxo["bestblock"] == info["bestblockhash"]
+        tpu = rpc.gettpuinfo()
+        fallbacks = {
+            "cpu_fallback_sigs": tpu["batch"]["cpu_fallback_sigs"],
+            "fault_fallback_sigs": tpu["batch"]["fault_fallback_sigs"],
+            "breaker_fallback_calls": sum(
+                b["fallback_calls"] for b in tpu["breakers"].values())}
+        dispatched = {k: v["dispatches"] for k, v in
+                      tpu["device"]["programs"].items() if v["dispatches"]}
+        out.update(devices=tpu["devices"], ecdsa=tpu["ecdsa"]["kernel"],
+                   programs=dispatched,
+                   batch={k: tpu["batch"][k] for k in (
+                       "dispatches", "sigs_verified", "glv_dev_dispatches")
+                       if k in tpu["batch"]},
+                   fallbacks=fallbacks)
+        want_devices = (["cpu"] if device == "cpu" else
+                        [torch.cuda.get_device_name(0)])
+        # on a CPU device (the rehearsal) "auto" takes the native CPU
+        # batch, as the reference does on a CPU backend: no device program
+        # runs, and its signatures count as CPU ones
+        on_card = device != "cpu"
+        checks.update({
+            "devices name the card": tpu["devices"] == want_devices,
+            "ecdsa glv": tpu["ecdsa"]["kernel"] == "glv",
+            "programs dispatched": bool(dispatched) or not on_card,
+            "no fallback": not any(fallbacks.values()) or not on_card})
+        prof = os.path.join(base, "profile")
+        rpc.startprofile(prof)
+        height = tip["height"]
+        t1 = time.monotonic()
+        first = rpc.submitblock(tips[0].hex())
+        again = rpc.submitblock(tips[0].hex())
+        stayed = rpc.getblockcount() == height
+        good = rpc.submitblock(tips[1].hex())
+        moved = rpc.getblockcount() == height + 1
+        out["submit_s"] = time.monotonic() - t1
+        stopped = rpc.stopprofile()
+        trace_path = os.path.join(prof, "trace.json")
+        with open(trace_path) as f:
+            events = json.load(f).get("traceEvents", [])
+        cats: dict = {}
+        for e in events:
+            cat = str(e.get("cat"))
+            cats[cat] = cats.get(cat, 0) + 1
+        names = sorted({e.get("name", "") for e in events
+                        if e.get("cat") == "kernel"})
+        port = [k for k in names if re.search(PORT_KERNEL_RE, k)]
+        out.update(submit={"tampered": first, "tampered_again": again,
+                           "good": good}, profile=stopped,
+                   trace_events=len(events), trace_categories=cats,
+                   trace_kernels=names[:20],
+                   trace_port_kernels=port)
+        checks.update({
+            "tampered rejected": stayed and again == "duplicate-invalid",
+            "good accepted": good is None and moved,
+            "trace names a port kernel": bool(port) or not on_card})
+        cli = subprocess.run(
+            [sys.executable, "-m", "bitcoincashplus_tpu_torch.cli.bcp_cli",
+             "-regtest", f"-datadir={base}", f"-rpcport={rpc_port}",
+             "getblockcount"], cwd=REPO, env=env, capture_output=True,
+            text=True, timeout=timeout)
+        checks["bcp_cli getblockcount"] = (
+            cli.returncode == 0 and cli.stdout.strip() == str(height + 1))
+        t1 = time.monotonic()
+        mined = rpc.generatetoaddress(1, rpc.getnewaddress())
+        out["generate_s"] = time.monotonic() - t1
+        mining = rpc.gettpuinfo()["mining"]
+        out["mining_engine"] = mining["engine"]
+        checks["generatetoaddress 1"] = (
+            len(mined) == 1 and rpc.getblockcount() == height + 2)
+        checks["mining engine"] = mining["engine"] == (
+            "h7-dispatch" if on_card else "scalar-host")
+        tpu = rpc.gettpuinfo()
+        out["fallbacks_after"] = {
+            "cpu_fallback_sigs": tpu["batch"]["cpu_fallback_sigs"],
+            "fault_fallback_sigs": tpu["batch"]["fault_fallback_sigs"],
+            "breaker_fallback_calls": sum(
+                b["fallback_calls"] for b in tpu["breakers"].values())}
+        checks["no fallback after"] = not on_card or not any(
+            out["fallbacks_after"].values())
+        rpc.stop()
+        rc = proc.wait(timeout)
+        out["exit_code"] = rc
+        checks["exit 0"] = rc == 0
+    except BaseException:
+        log(f"bcpd stderr: {tail('stderr')}")
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        for f in logs.values():
+            f.close()
+        shutil.rmtree(base, ignore_errors=True)
+        for k in logs:
+            os.remove(f"{base}.{k}")
+    out["wall_s"] = time.monotonic() - t0
+    out["checks"] = checks
+    return out
+
+
+def shard_phases(clock_hz: float, ops_exact: int) -> tuple:
+    """Phases 7a-7c, the sharded paths (K13): one launch a shard at each
+    layout of shard_layouts, the host folds (counts zeroed inside, just
+    before each call); each phase's wall and results logged, any failed
+    check raised. Returns their results."""
+    t0 = time.monotonic()
+    ss = shard_sig_phase(clock_hz)
+    log(f"shard signatures: {json.dumps(ss, sort_keys=True)}")
+    for r in ss["runs"]:
+        log(f"shard signatures {r['kernel']} {r['layout']} (width "
+            f"{r['width']}): {ss['n']} sigs in {r['wall_s']:.3f} s; launches "
+            f"{r['launches']}, shapes {r['launch_shapes']}, degenerate "
+            f"re-checks {r['degenerate_rechecks']}; fallbacks "
+            f"{r['fallbacks']}")
+    for name, r in ss["programs"].items():
+        log(f"{name} ({r['entry']} a shard, {r['B']} lanes): call wall "
+            f"{', '.join(f'{k} {v:.3f}' for k, v in r['ms'].items())} ms; "
+            f"plain {r['plain_ms']:.1f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    log(f"phase 7a wall {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    sm = shard_msm_phase(clock_hz)
+    log(f"shard msm: {json.dumps(sm, sort_keys=True)}")
+    r = sm["program"]
+    log(f"sharded_msm ({r['terms']} terms, bucket {r['M']} at width 1): "
+        f"call wall {', '.join(f'{k} {v:.3f}' for k, v in r['ms'].items())} "
+        f"ms; plain {r['plain_ms']:.1f} ms; bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}); shards of padding alone {sm['padding']}")
+    log(f"phase 7b wall {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    sn = shard_nonce_phase(clock_hz, ops_exact)
+    log(f"shard nonces: {json.dumps(sn, sort_keys=True)}")
+    r = sn["program"]
+    log(f"sharded_sweep (first hit {r['first_hit']}, header {r['header_tried']}"
+        f" tried): call wall "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in r['ms'].items())} ms; plain "
+        f"{r['plain_ms']:.1f} ms over {r['nonces']} nonces; bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}); blocks {sn['blocks']}")
+    log(f"phase 7c wall {time.monotonic() - t0:.1f} s")
+    failed = [f"{name}: {k}" for name, ph in (("7a", ss), ("7b", sm),
+                                              ("7c", sn))
+              for k, v in ph["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"sharded path checks failed: {failed}")
+    return ss, sm, sn
+
+
+def shard_kernel_rows(ss: dict, sm: dict, sn: dict) -> list:
+    """The report's rows of the sharded programs (K13): the per-shard
+    entry's launches on the sharded phases' calls; times at the default
+    layout (chip_mesh(): every card), on [cuda:0] * 4 and of the
+    unsharded call beside them."""
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    rows = []
+    lay1, lay4 = shard_layouts(torch.device("cuda"))
+    for name, r in ss["programs"].items():
+        entry = r["entry"]
+        source = ("w4_verify.cu" if entry == "w4_verify_bytes" else
+                  "glv_pair.cu" if S.launch_shape(r["B"], S.GLV_LAUNCH)[0]
+                  > S.GLV_PAIR else "glv_verify.cu")
+        launches = sum(x["launches"].get(entry, 0) for x in ss["runs"]) + \
+            sum(n for h in ss["host_split"].values()
+                for e, _B, n in h["launch_shapes"] if e == entry)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "bitcoincashplus_tpu_torch/csrc/" + source,
+            "replaces": r["replaces"], "launches": launches,
+            "max_abs_err": 0, "ms": r["ms"][lay1], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "entry": entry, "B": r["B"],
+            "ms_4_streams": r["ms"][lay4], "unsharded_ms": r["ms"]["unsharded"]})
+    r = sm["program"]
+    rows.append({
+        "name": "sharded_msm", "route": "cuda",
+        "source": "bitcoincashplus_tpu_torch/csrc/msm.cu",
+        "replaces": "bitcoincashplus_tpu/parallel/sig_shard.py:165",
+        "launches": sum(n for x in sm["runs"]
+                        for _e, _M, n in x["launch_shapes"]),
+        "max_abs_err": 0, "ms": r["ms"][lay1], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None, "entry": "msm_partial", "M": r["M"],
+        "ms_4_streams": r["ms"][lay4], "unsharded_ms": r["ms"]["unsharded"]})
+    r = sn["program"]
+    rows.append({
+        "name": "sharded_sweep", "route": "cuda",
+        "source": "bitcoincashplus_tpu_torch/csrc/sha256d_sweep.cu",
+        "replaces": "bitcoincashplus_tpu/parallel/nonce_shard.py:80",
+        "launches": sum(x["launches"]["sweep_exact"] for x in sn["runs"])
+        + sum(b["launches"] for b in sn["blocks"].values()),
+        "max_abs_err": 0, "ms": r["ms"][f"from 0 {lay1}"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "entry": "sweep_exact", "nonces": r["nonces"],
+        "ms_4_streams": r["ms"][f"from 0 {lay4}"],
+        "unsharded_ms": r["ms"]["from 0 unsharded"]})
+    return rows
+
+
 def dev_tip(summary: dict) -> bytes:
     return bytes.fromhex(summary["best"])
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    if args not in ([], ["--sharded"]):
+        print("usage: chip_smoke.py [--sharded]", file=sys.stderr)
+        return 2
+    sharded_only = args == ["--sharded"]
     try:
         import torch
     except ImportError:
@@ -3181,6 +4005,17 @@ def main() -> int:
                 f"the rounds count {bops[key]} a {key} (ALU ratio "
                 f"{batch[kernel]['sass_alu'] / bops[key]['alu']:.3f})")
 
+    if sharded_only:
+        # the sharded paths alone, over every card of the host
+        ss, sm, sn = shard_phases(clock_hz, ops["exact"])
+        log(f"total {time.monotonic() - t_all:.0f} s")
+        print(json.dumps({"kernels": shard_kernel_rows(ss, sm, sn)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     # 2. the w4 field core alone, then the ECDSA kernels at every shape,
     # team size and block size
     selftest = field_selftest()
@@ -3326,9 +4161,14 @@ def main() -> int:
     workdir = os.path.join(REPO, "build", "smoke_chain")
     shutil.rmtree(workdir, ignore_errors=True)
     sl = slice_phase(workdir)
-    # 5d. the node's -reindex of the same chain (fresh copies beside it)
+    tips = sl.pop("tips")
+    # 5d. the node's -reindex of the same chain (fresh copies beside it);
+    # a copy is kept for the daemon (phase 8)
+    ddir = os.path.join(REPO, "build", "smoke_daemon_chain")
+    shutil.rmtree(ddir, ignore_errors=True)
     try:
         nd = node_phase(workdir, sl["gen"]["sigs"])
+        shutil.copytree(workdir, ddir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"slice: {json.dumps(sl, sort_keys=True)}")
@@ -3521,7 +4361,28 @@ def main() -> int:
             f"(the gate sends {DP._merkle_device_min()} leaves or more to "
             f"the device)")
 
-    # 7. report: each kernel at the shape the main path launched most
+    # 7a-7c. the sharded paths (K13)
+    ss, sm, sn = shard_phases(clock_hz, ops["exact"])
+
+    # 8. the daemon: bcpd -regtest -reindex on the node phase's chain, over
+    # RPC
+    try:
+        dm = daemon_phase(ddir, tips, nd["runs"]["tpu0"])
+    finally:
+        shutil.rmtree(ddir, ignore_errors=True)
+    log(f"daemon: {json.dumps(dm, sort_keys=True)}")
+    log(f"daemon: started in {dm['started_s']:.1f} s ({dm['started_line']}), "
+        f"tip {dm['tip']['height']}, devices {dm['devices']}, ecdsa "
+        f"{dm['ecdsa']}, submit {dm['submit']} in {dm['submit_s']:.3f} s, "
+        f"trace port kernels {dm['trace_port_kernels']}, generatetoaddress "
+        f"({dm['mining_engine']}) {dm['generate_s']:.3f} s, exit "
+        f"{dm['exit_code']}; fallbacks {dm['fallbacks']}; phase 8 wall "
+        f"{dm['wall_s']:.1f} s")
+    failed = [k for k, v in dm["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"daemon checks failed: {failed}")
+
+    # 9. report: each kernel at the shape the main path launched most
     replaces = {
         "w4_verify_bytes": "bitcoincashplus_tpu/ops/secp256k1.py:912",
         "w4_verify_planes": "bitcoincashplus_tpu/ops/secp256k1.py:827",
@@ -3627,13 +4488,15 @@ def main() -> int:
                         if k in r}
                        for r in rows]})
     # the MSM: the verdict entry's launches on its paths (the Schnorr
-    # chain's runs, the dispatch sizes, the drills); the partial entry has
-    # no caller on any path (the sharded fold is not ported); each at the
-    # chain's bucket
+    # chain's runs, the dispatch sizes, the drills), the partial entry's
+    # on the sharded MSM's calls (phase 7b); each at the chain's bucket
     msm_launches = sum(run["launches"]["msm"] for run in mc["runs"]) + sum(
         row["launches"]["msm"] for row in md.values())
     msm_main = next(r for r in msm_rows if r["M"] == 4096)
-    for name, launches in (("msm", msm_launches), ("msm_partial", 0)):
+    partial_launches = sum(n for x in sm["runs"]
+                           for _e, _M, n in x["launch_shapes"])
+    for name, launches in (("msm", msm_launches),
+                           ("msm_partial", partial_launches)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "bitcoincashplus_tpu_torch/csrc/msm.cu",
@@ -3669,6 +4532,7 @@ def main() -> int:
                                          "sigs_per_s")},
                     "launches": ladder_counts.get(r["B"], 0)}
                    for r in ladder_rows]})
+    kernels += shard_kernel_rows(ss, sm, sn)
     for kern in sorted(set(PATH_ORDER)):
         walls = [run["wall_s"] for run in sl["runs"]
                  if run["kernel"] == kern]

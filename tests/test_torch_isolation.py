@@ -1,5 +1,7 @@
 """The port package stands alone: importing its block-validation and
-mining modules loads neither jax nor any module of the JAX package; no
+mining modules, the daemon (cli/bcpd and the RPC, P2P and wallet modules
+it starts) and the sharded paths loads neither jax nor any module of the
+JAX package; no
 port file imports them; and every host module the port copied from the
 JAX package is byte-identical to its original, apart from the differences
 listed here."""
@@ -31,7 +33,14 @@ HOST_COPIES = (
     "mempool/__init__ mempool/accept mempool/fees mempool/mempool "
     "mempool/persist mempool/policy store/sharded store/snapshot "
     "serving/__init__ serving/gateway serving/replicas serving/sigservice "
-    "node/__init__ node/config node/node"
+    "node/__init__ node/config node/node "
+    "wallet/__init__ wallet/bip32 wallet/crypter wallet/message "
+    "wallet/wallet crypto/aes crypto/siphash consensus/merkleblock "
+    "rpc/__init__ rpc/registry rpc/server rpc/client rpc/blockchain "
+    "rpc/mining rpc/net rpc/rawtransaction rpc/rest rpc/wallet rpc/zmq "
+    "rpc/control p2p/__init__ p2p/protocol p2p/addrman p2p/bloom "
+    "p2p/compact p2p/connman cli/__init__ cli/bcp_cli cli/bcp_tx cli/bcpd "
+    "parallel/__init__"
 ).split()
 # the package __init__ is the port's own (its docstring describes the port)
 HOST_COPIES.remove("__init__")
@@ -70,13 +79,83 @@ def _no_jax_platform_pin(src: str) -> str:
     return src.replace(old, "")
 
 
+def _torch_device_list(src: str) -> str:
+    # gettpuinfo's device list: jax.devices() inside a try that swallowed
+    # every exception becomes the port's device switch's names (each
+    # card's name under CUDA, ["cpu"] under the CPU switch), raising where
+    # it fails (works on the file and on the unparsed function alike)
+    start = src.index("    devices = []\n")
+    end = src.index("        pass\n", start) + len("        pass\n")
+    old = src[start:end]
+    assert src.count(old) == 1 and "import jax" in old
+    return src.replace(old, "    devices = ecdsa_batch.device_names()\n")
+
+
+def _torch_rpc_control(src: str) -> str:
+    # the device list above, and the profiler RPCs' docstrings: their code
+    # is the reference's (util/devicewatch's start_profile/stop_profile
+    # run torch.profiler), their dump a Chrome trace
+    src = _torch_device_list(src)
+    for old, new in (
+        ("    Start an on-demand jax.profiler trace (device-side XLA timeline —\n"
+         "    the layer below the span tracer's host view). Default directory:\n"
+         "    <datadir>/profile. Stop with ``stopprofile``; the dump is\n"
+         "    TensorBoard-compatible (plugins/profile/<ts>/*.xplane.pb +\n"
+         "    trace.json.gz — load with tensorboard --logdir or xprof). Errors if\n"
+         "    a profile is already running (the profiler is process-global).",
+         "    Start an on-demand torch.profiler trace (host and CUDA activity, the\n"
+         "    card's kernels by name — the layer below the span tracer's host\n"
+         "    view). Default directory: <datadir>/profile. Stop with\n"
+         "    ``stopprofile``; the dump is a Chrome trace, <dir>/trace.json (load\n"
+         "    at ui.perfetto.dev or chrome://tracing). Errors if a profile is\n"
+         "    already running (the profiler is process-global)."),
+        ("    Stop the running jax.profiler trace started by",
+         "    Stop the running torch.profiler trace started by")):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    return src
+
+
+def _device_switch(src: str) -> str:
+    # bcpd's -device= (cuda by default, cpu for the tests) sets the port's
+    # device switch before the node starts; with no card it raises, and
+    # its "bcpd started" line names the device
+    for old, new in (
+        ("from ..node.node import InitError, Node\n",
+         "from ..node.node import InitError, Node\n"
+         "from ..ops import cuda_build\n"),
+        ("    try:\n        node = Node(config)\n",
+         "    # the device the kernels run on: the card unless -device=cpu (the\n"
+         "    # kernels' plain versions, for tests); with no card the daemon "
+         "raises\n"
+         "    device = config.get(\"device\", \"cuda\")\n"
+         "    try:\n"
+         "        cuda_build.set_device(device)\n"
+         "    except (ValueError, RuntimeError) as e:  # not cuda or cpu\n"
+         "        print(f\"Error parsing command line arguments: -device: {e}\",\n"
+         "              file=sys.stderr)\n"
+         "        return 1\n"
+         "    try:\n"
+         "        cuda_build.require_device(\"bcpd\")\n"
+         "        node = Node(config)\n"),
+        ("datadir={node.datadir}\",\n          flush=True)",
+         "datadir={node.datadir}\"\n"
+         "          f\" device={cuda_build.device()}\", flush=True)")):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    return src
+
+
 # Not in HOST_COPIES, being the port's own: ops/dispatch.py (its
-# supervised_call is pinned function by function below) and
+# supervised_call is pinned function by function below),
 # mining/resident.py (a CUDA stream of segments in place of JAX async
-# dispatch).
+# dispatch) and parallel/ (one launch a shard in place of shard_map; its
+# entry points pinned function by function below).
 DIFFERENCES = {
     "validation/scriptcheck": _reraise_kernel_unavailable,
     "node/node": _no_jax_platform_pin,
+    "rpc/control": _torch_rpc_control,
+    "cli/bcpd": _device_switch,
 }
 
 
@@ -156,9 +235,81 @@ def _no_pallas_latch(code: str) -> str:
     return code.replace(old, "return ")
 
 
+def _replacing(*pairs):
+    """A listed difference made of exact replacements, each found once."""
+    def apply(code: str) -> str:
+        for old, new in pairs:
+            assert code.count(old) == 1, old
+            code = code.replace(old, new)
+        return code
+    return apply
+
+
+# the sharded entry points: a layout (devices=) in place of the mesh, and
+# one launch a shard in place of the shard_map program; the rest (the
+# stripe budget, the buckets, the packs, the rung choice, the host
+# re-check, the MSM fold) is the reference's
+_LAYOUT_SWEEP = _replacing(
+    ("return_per_chip: bool=False):",
+     "return_per_chip: bool=False, devices=None):"),
+    ("        n_chips = len(local_devices())\n",
+     "        n_chips = len(local_devices()) if devices is None else "
+     "len(devices)\n    devices = layout(n_chips, devices)\n"),
+    ("    midstate = jnp.asarray(np.array(header_midstate(header80), "
+     "dtype=np.uint32))\n    tail = jnp.asarray(bytes_to_words_np("
+     "np.frombuffer(header80[64:76], dtype=np.uint8)))\n"
+     "    tgt = jnp.asarray(target_to_limbs_np(target))\n",
+     "    midstate = np.array(header_midstate(header80), dtype=np.uint32)\n"
+     "    tail = bytes_to_words_np(np.frombuffer(header80[64:76], "
+     "dtype=np.uint8))\n    tgt = target_to_limbs_np(target)\n"),
+    ("_sharded_sweep_jit(midstate, tail, tgt, jnp.uint32(start_nonce), "
+     "jnp.uint32(n_tiles), tile=tile, n_chips=n_chips)",
+     "_sharded_sweep(midstate, tail, tgt, np.uint32(start_nonce), "
+     "np.uint32(n_tiles), tile=tile, devices=devices)"))
+_LAYOUT_VERIFY = _replacing(
+    ("kernel: str | None=None) -> np.ndarray:",
+     "kernel: str | None=None, devices=None) -> np.ndarray:"),
+    ("    n = len(records)\n",
+     "    devices = layout(n_chips, devices)\n    n = len(records)\n"),
+    ("jax.block_until_ready(_sharded_glv_dev_jit(*arrays, n_chips=n_chips))",
+     "_sharded_glv_dev(*arrays, devices=devices)"),
+    ("jax.block_until_ready(_sharded_glv_jit(*arrays, n_chips=n_chips))",
+     "_sharded_glv(*arrays, devices=devices)"),
+    ("jax.block_until_ready(_sharded_w4_jit(*arrays, n_chips=n_chips, "
+     "interpret=_use_interpret(n_chips)))",
+     "_sharded_w4(*arrays, devices=devices)"))
+# and the MSM partials as the port's ((X, Y, Z), inf) ints
+# (ops/secp256k1.msm_partial_point) in place of the packed limb column
+_LAYOUT_MSM = _replacing(
+    ("(terms, n_chips: int) -> bool:",
+     "(terms, n_chips: int, devices=None) -> bool:"),
+    ("    from ..ops.secp256k1 import N_LIMBS, from_limbs_np\n", ""),
+    ("    per_chip = _msm_bucket_for(",
+     "    devices = layout(n_chips, devices)\n"
+     "    per_chip = _msm_bucket_for("),
+    ("np.asarray(jax.block_until_ready(_sharded_msm_jit(*arrays, "
+     "n_chips=n_chips)))", "_sharded_msm(*arrays, devices=devices)"),
+    ("        col = out[:, c]\n        if col[3 * N_LIMBS]:\n",
+     "        (x, y, z), inf = out[c]\n        if inf:\n"),
+    ("        x = from_limbs_np(col[0:N_LIMBS]) % oracle.P\n"
+     "        y = from_limbs_np(col[N_LIMBS:2 * N_LIMBS]) % oracle.P\n"
+     "        z = from_limbs_np(col[2 * N_LIMBS:3 * N_LIMBS]) % oracle.P\n",
+     ""))
+# a layout is a list of torch devices, not a jax Mesh
+_LAYOUT_MESH = _replacing(
+    (") -> Mesh:", ") -> list:"),
+    ("local_devices(min_count=n or 1)", "local_devices()"),
+    ("return Mesh(np.array(devs), (CHIP_AXIS,))", "return devs"))
+
+
 # functions of the port's own modules that keep the reference's code (the
 # docstring aside) apart from the listed difference
 FUNCTION_DIFFERENCES = {
+    ("rpc/control", "gettpuinfo"): _torch_device_list,
+    ("parallel/nonce_shard", "sweep_header_sharded"): _LAYOUT_SWEEP,
+    ("parallel/sig_shard", "verify_batch_sharded"): _LAYOUT_VERIFY,
+    ("parallel/sig_shard", "msm_is_infinity_sharded"): _LAYOUT_MSM,
+    ("parallel/mesh", "chip_mesh"): _LAYOUT_MESH,
     ("ops/dispatch", "supervised_call"): _fallback_only_for_injected_faults,
     ("ops/ecdsa_batch", "_dispatch_msm"): _msm_oracle_only_for_injected_faults,
     ("ops/ecdsa_batch", "_dispatch_schnorr"):
@@ -187,7 +338,12 @@ FUNCTION_COPIES = [
         "_round_div", "glv_split", "glv_decompose", "_np_limbs16",
         "_np_const16", "_np_mul", "_np_norm", "_np_sub", "_np_ge", "_np_dbl",
         "_np_bytes_le", "glv_split_batch_np", "glv_decompose_batch_np",
-        "field_neg_bytes_np")]
+        "field_neg_bytes_np")] + [
+    # the profiler RPCs (their docstrings aside; util/devicewatch's state
+    # snapshot), and the sharded path's device count and dryrun
+    ("rpc/control", "startprofile"), ("rpc/control", "stopprofile"),
+    ("util/devicewatch", "profile_snapshot"), ("parallel/mesh", "device_count"),
+    ("parallel/sig_shard", "dryrun")]
 
 
 def _function_code(path: str, name: str) -> str:
@@ -223,6 +379,14 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import bitcoincashplus_tpu_torch.serving\n"
         "import bitcoincashplus_tpu_torch.mempool\n"
         "import bitcoincashplus_tpu_torch.store.snapshot\n"
+        "import bitcoincashplus_tpu_torch.cli.bcpd\n"
+        "import bitcoincashplus_tpu_torch.cli.bcp_cli\n"
+        "import bitcoincashplus_tpu_torch.cli.bcp_tx\n"
+        "import bitcoincashplus_tpu_torch.rpc\n"
+        "import bitcoincashplus_tpu_torch.p2p\n"
+        "import bitcoincashplus_tpu_torch.wallet\n"
+        "import bitcoincashplus_tpu_torch.parallel.sig_shard\n"
+        "import bitcoincashplus_tpu_torch.parallel.nonce_shard\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m.startswith('jaxlib')\n"
         "             or m == 'bitcoincashplus_tpu'\n"
@@ -402,7 +566,8 @@ def test_kernel_info_msm_keys_read_the_msm_counters(monkeypatch, key, field):
 PORT_OWNED = ("ops/sha256", "ops/merkle", "ops/dispatch", "ops/miner",
               "ops/sha256_sweep", "ops/ecdsa_batch", "util/devicewatch",
               "mining/resident")
-OWN_MODULE_READERS = ("node/node", "mempool/accept", "serving/sigservice")
+OWN_MODULE_READERS = ("node/node", "mempool/accept", "serving/sigservice",
+                      "rpc/control")
 
 
 def _own_module_reads(module: str) -> dict:
@@ -439,8 +604,9 @@ def test_reference_copies_find_what_they_read_in_the_port(module):
     """node/node (the mining engine probe ops/sha256.backend_is_cpu, the
     sweeps, -ecdsakernel's set_kernel, the packed dispatch and its STATS,
     -compilecache's devicewatch.enable_compile_cache, the WATCHDOG),
-    mempool/accept and serving/sigservice find every name they read in
-    the port's own modules."""
+    mempool/accept, serving/sigservice and rpc/control (gettpuinfo's
+    devicewatch.snapshot, the profiler RPCs' start_profile/stop_profile)
+    find every name they read in the port's own modules."""
     import importlib
 
     reads = _own_module_reads(module)
@@ -450,6 +616,9 @@ def test_reference_copies_find_what_they_read_in_the_port(module):
         assert {"enable_compile_cache", "WATCHDOG"} <= \
             reads["util/devicewatch"]
         assert {"set_kernel", "dispatch_packed"} <= reads["ops/ecdsa_batch"]
+    if module == "rpc/control":
+        assert {"snapshot", "start_profile", "stop_profile"} <= \
+            reads["util/devicewatch"]
     for target, names in sorted(reads.items()):
         mod = importlib.import_module(
             "bitcoincashplus_tpu_torch." + target.replace("/", "."))
