@@ -1296,7 +1296,7 @@ def _dispatch_device(records: Sequence, br,
             require_device("the ecdsa device leg")
             device_ok = degen = None
             poisoned = False
-            if kern == "glv":
+            if kern == "glv" and glv_enabled():
                 # floor 1024: the GLV legs take the byte ladder's buckets
                 bucket = max(1024, _bucket_for(len(wire), pallas=True))
                 device_ok, degen, poisoned = _glv_ladder(
@@ -1352,36 +1352,41 @@ def _glv_ladder(bucket: int, dev_arrays: Callable[[], list],
     and _dispatch_packed_device: the device-split kernel on
     ``dev_arrays()`` (the w4 byte matrices), then, only after a fault the
     harness injected there, the host-split kernel on ``host_arrays()``.
-    Returns (device_ok, degen, poisoned); device_ok is None when injected
-    faults took both rungs down (the caller steps down to w4)."""
+    Each leg runs behind the reference's gate: the device split behind
+    glv_dev_enabled(), the host split behind glv_enabled(). Returns
+    (device_ok, degen, poisoned); device_ok is None when injected faults
+    took both rungs down (the caller steps down to w4)."""
     from . import secp256k1 as dev
 
-    try:
-        # device-split leg: the host pack is the w4 byte emit only; the
-        # lattice split runs in the kernel
-        INJECTOR.on_call(GLV_DEV_SITE)
-        INJECTOR.on_call(GLV_SITE)
-        t0 = time.monotonic()
-        with dw.phase("ecdsa", "pack"):
-            arrays = dev_arrays()
-        dt = time.monotonic() - t0
-        STATS.glv_emit_s += dt
-        _STAGE_H.labels(stage="emit").observe(dt)
-        t0 = time.monotonic()
-        device_ok, degen = _watched_kernel(
-            _PW_GLV_DEV, bucket, arrays, dev.ecdsa_verify_batch_glv_dev)
-        STATS.glv_dispatch_s += time.monotonic() - t0
-        poisoned = (INJECTOR.should_poison(GLV_DEV_SITE)
-                    or INJECTOR.should_poison(GLV_SITE))
-        if poisoned:
-            device_ok = ~device_ok
-        STATS.glv_dispatches += 1
-        STATS.glv_dev_dispatches += 1
-        return device_ok, degen, poisoned
-    except (KeyboardInterrupt, SystemExit):
-        raise
-    except Exception as e:
-        _note_glv_dev_failure(e)
+    if glv_dev_enabled():
+        try:
+            # device-split leg: the host pack is the w4 byte emit only;
+            # the lattice split runs in the kernel
+            INJECTOR.on_call(GLV_DEV_SITE)
+            INJECTOR.on_call(GLV_SITE)
+            t0 = time.monotonic()
+            with dw.phase("ecdsa", "pack"):
+                arrays = dev_arrays()
+            dt = time.monotonic() - t0
+            STATS.glv_emit_s += dt
+            _STAGE_H.labels(stage="emit").observe(dt)
+            t0 = time.monotonic()
+            device_ok, degen = _watched_kernel(
+                _PW_GLV_DEV, bucket, arrays, dev.ecdsa_verify_batch_glv_dev)
+            STATS.glv_dispatch_s += time.monotonic() - t0
+            poisoned = (INJECTOR.should_poison(GLV_DEV_SITE)
+                        or INJECTOR.should_poison(GLV_SITE))
+            if poisoned:
+                device_ok = ~device_ok
+            STATS.glv_dispatches += 1
+            STATS.glv_dev_dispatches += 1
+            return device_ok, degen, poisoned
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as e:
+            _note_glv_dev_failure(e)
+    if not glv_enabled():
+        return None, None, False
     try:
         # host-split leg
         INJECTOR.on_call(GLV_SITE)
@@ -1806,8 +1811,9 @@ def _dispatch_packed_device(pub, rs, msg, rn, wrap, n: int,
                             br) -> Optional[BatchHandle]:
     """Supervised packed enqueue (retries + KAT lanes) down the ladder of
     _dispatch_device (GLV device split -> GLV host split -> the w4 byte
-    entry) under the process default kernel (GLV under "msm": the blobs
-    are ECDSA); None when every attempt failed. As in the reference, the
+    entry) under the process default kernel: the GLV legs run only under
+    "glv", as the reference gates them, so "w4" and "msm" start at the w4
+    byte entry; None when every attempt failed. As in the reference, the
     w4 byte entry is the rung below GLV here whatever pallas_enabled()
     says (dispatch_packed sends the blobs here with Pallas off only under
     GLV, so only injected faults on both GLV rungs reach it then)."""
@@ -1867,7 +1873,9 @@ def _dispatch_packed_device(pub, rs, msg, rn, wrap, n: int,
 
             device_ok = degen = None
             poisoned = False
-            if active_kernel() in ("glv", "msm"):
+            # the reference's gate: only -ecdsakernel=glv takes the GLV
+            # legs here; w4 and msm send packed blobs to the w4 byte rung
+            if active_kernel() == "glv" and glv_enabled():
                 device_ok, degen, poisoned = _glv_ladder(
                     bucket, byte_arrays, lambda: _glv_pack_parts(
                         u1, u2, pub2[:, :32], pub2[:, 32:], rs2[:, :32],

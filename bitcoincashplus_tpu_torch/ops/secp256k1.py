@@ -580,7 +580,12 @@ def ecdsa_verify_batch_pallas_w4(u1w, u2w, qx, qy, q_inf, r0, rn, wrap_ok):
 def w4_verify_bytes_plain(u1m, u2m, qxb, qyb, q_inf8, r0b, rnb, wrap8):
     """The plain version of ecdsa_verify_batch_pallas_w4_bytes, on the
     inputs' own device (the CPU in the tests; the card in chip_smoke.py,
-    where the kernel is held against it)."""
+    where the kernel is held against it); live lanes only."""
+    return _on_live_lanes(_w4_bytes_live, q_inf8, u1m, u2m, qxb, qyb,
+                          q_inf8, r0b, rnb, wrap8)
+
+
+def _w4_bytes_live(u1m, u2m, qxb, qyb, q_inf8, r0b, rnb, wrap8):
     return w4_verify_plain(
         _expand_nibble_windows(u1m).T, _expand_nibble_windows(u2m).T,
         _expand_limb_cols(qxb), _expand_limb_cols(qyb), q_inf8 != 0,
@@ -1262,28 +1267,50 @@ def glv_decompose_device_batch(km):
 # Port of the MSM part of the reference's ops/secp256k1.py (_msm_accumulate,
 # _msm_program, _msm_partial_program and their host entries). The batch
 # check asks whether sum_j k_j Q_j over the packed terms is the point at
-# infinity. The schedule, shared by the kernel (csrc/msm.cu) and the plain
-# version below: K = max(1, min(128, M / 32)) streams of M / K terms; lane
-# 64 k + w of stream k keeps 16 buckets and adds each of its stream's terms
-# into bucket (the w-th 4-bit window of k_j, MSB first) by a complete
-# mixed add (digit 0 and flagged terms add nothing); the streams merge
-# pairwise (log2 K complete full adds, the lower stream first); each
-# window's buckets reduce by suffix sums (b = 15 .. 1: running += B_b,
-# total += running), and a Horner pass over the 64 window sums (4
-# doublings, then a full add) gives the sum. Every add is complete: an
-# adversary controls the terms, so P == Q and P == -Q do occur.
+# infinity. Only that sum is the contract, so the schedule is the kernel's
+# own (csrc/msm.cu, whose head note gives it in full), shared with the
+# plain version below so that the two agree on the sum's Jacobian triple:
+# each term splits by GLV into (|k1|, +-Q) and (|k2|, +-phi(Q)), terms j
+# and M + j of 2M; K streams (msm_streams) of 2M / K terms, lane 32 k + w
+# of stream k keeps 15 buckets and adds each of its stream's terms into
+# bucket (the w-th 4-bit window of the term's 128-bit magnitude, MSB
+# first) by a complete mixed add; the streams merge pairwise (log2 K
+# complete full adds, the lower stream first); each window's weighted
+# bucket sum is sum_i 2^i T_i over the bit sums T_i (add trees), and the
+# 32 window sums join in a log-depth tree (2^(4 2^l) A + B at level l).
+# Every add is complete: an adversary controls the terms, so P == Q and
+# P == -Q do occur.
 
-# more streams: wider bucket walks, more merge levels; M / 32 keeps every
-# stream at least 32 terms deep
-_MSM_STREAM_CAP = 128
+# more streams: shorter bucket walks, more merge levels, more bucket
+# scratch; M / 16 streams keep every walk at 32 terms (2M / K) up to
+# M = 8192, and the cap keeps the scratch at half the card's L2 (64 terms
+# at M = 16384; see csrc/msm.cu)
+_MSM_STREAM_CAP = 512
+MSM_WINDOWS = 32     # 4-bit windows of a 128-bit GLV magnitude
+MSM_BUCKETS = 15     # digits 1 .. 15
+MSM_TERM_WORDS = 24  # a split term in csrc/msm.cu's scratch
 # the 25 words of csrc/msm.cu's result: canonical X, Y, Z (8 little-endian
 # words each; X = Y = 1, Z = 0 at infinity) and the infinity flag
 MSM_WORDS = 25
 
 
 def msm_streams(M: int) -> int:
-    """The stream count K of an M-term MSM."""
-    return max(1, min(_MSM_STREAM_CAP, M // 32))
+    """The stream count K of an M-term MSM: the largest power of two at
+    most min(512, M / 16) (1 below 32 terms)."""
+    k = 1
+    while 2 * k <= min(_MSM_STREAM_CAP, M // 16):
+        k *= 2
+    return k
+
+
+def msm_scratch_words(M: int) -> dict:
+    """The int32 words of csrc/msm.cu's scratch for an M-term MSM, in
+    msm_run's order: the split terms, the buckets (15 x 25 a lane, 32
+    lanes a stream) and the 32 window sums."""
+    K = msm_streams(M)
+    return {"terms": MSM_TERM_WORDS * 2 * M,
+            "buckets": MSM_BUCKETS * MSM_WORDS * MSM_WINDOWS * K,
+            "windows": MSM_WINDOWS * MSM_WORDS}
 
 
 def _inf_points(n: int, device) -> tuple:
@@ -1293,12 +1320,18 @@ def _inf_points(n: int, device) -> tuple:
             torch.ones(n, dtype=torch.bool, device=device))
 
 
-def _same_opposite(H, R, finite) -> tuple:
+def _same_opposite(H, R, finite, tally) -> tuple:
     """(P == Q, P == -Q) lane masks of a complete add between finite
     points: H == 0 and R == 0, or H == 0 and R != 0 (exact mod p; one
-    zero test over both)."""
+    zero test over both). ``tally`` (a dict, or None) counts the lanes of
+    each case under "same" and "opposite"."""
     zero = f_is_zero(torch.stack([H, R]))
-    return (zero[0] & zero[1] & finite, zero[0] & ~zero[1] & finite)
+    same = zero[0] & zero[1] & finite
+    opposite = zero[0] & ~zero[1] & finite
+    if tally is not None:
+        tally["same"] = tally.get("same", 0) + int(same.sum())
+        tally["opposite"] = tally.get("opposite", 0) + int(opposite.sum())
+    return same, opposite
 
 
 def _with_doubles(same, pt: tuple, out: tuple) -> tuple:
@@ -1309,19 +1342,20 @@ def _with_doubles(same, pt: tuple, out: tuple) -> tuple:
     return pt_select(same, pt_double(pt), out)
 
 
-def pt_add_mixed(pt: tuple, qx, qy, q_inf) -> tuple:
+def pt_add_mixed(pt: tuple, qx, qy, q_inf, tally=None) -> tuple:
     """Complete mixed add P (Jacobian) + Q (affine), the reference's
     pt_add_mixed: P = inf -> Q; Q = inf -> P; P == Q -> double(P);
     P == -Q -> infinity; else madd (Z1Z1 = Z^2, U2 = qx Z1Z1, S2 = qy Z
     Z1Z1, H = U2 - X, R = S2 - Y, X3 = R^2 - HHH - 2V, Y3 = R (V - X3) -
-    Y HHH, Z3 = Z H). The zero tests on H and R are exact mod p."""
+    Y HHH, Z3 = Z H). The zero tests on H and R are exact mod p. tally:
+    see _same_opposite."""
     X, Y, Z, inf = pt
     Z1Z1 = f_sqr(Z)
     U2 = f_mul(qx, Z1Z1)
     S2 = f_mul(qy, f_mul(Z, Z1Z1))
     H = f_carry_sub(U2, X)
     R = f_carry_sub(S2, Y)
-    same, opposite = _same_opposite(H, R, ~inf & ~q_inf)
+    same, opposite = _same_opposite(H, R, ~inf & ~q_inf, tally)
     HH = f_sqr(H)
     HHH = f_mul(H, HH)
     V = f_mul(X, HH)
@@ -1334,7 +1368,7 @@ def pt_add_mixed(pt: tuple, qx, qy, q_inf) -> tuple:
     return pt_select(q_inf & ~inf, pt, out)
 
 
-def pt_add_full(pt: tuple, q: tuple) -> tuple:
+def pt_add_full(pt: tuple, q: tuple, tally=None) -> tuple:
     """Complete Jacobian add P + Q, the reference's pt_add_full (the
     add-2007-bl core of _pt_add_full_cheap_u with the same case analysis
     as pt_add_mixed)."""
@@ -1348,7 +1382,7 @@ def pt_add_full(pt: tuple, q: tuple) -> tuple:
     S2 = f_mul(Y2, f_mul(Z1, Z1Z1))
     H = f_carry_sub(U2, U1)
     R = f_carry_sub(S2, S1)
-    same, opposite = _same_opposite(H, R, ~inf1 & ~inf2)
+    same, opposite = _same_opposite(H, R, ~inf1 & ~inf2, tally)
     HH = f_sqr(H)
     HHH = f_mul(H, HH)
     V = f_mul(U1, HH)
@@ -1360,27 +1394,63 @@ def pt_add_full(pt: tuple, q: tuple) -> tuple:
     return pt_select(inf2 & ~inf1, pt, out)
 
 
+def _pt_doubles(pt: tuple, times: int) -> tuple:
+    for _ in range(times):
+        pt = pt_double(pt)
+    return pt
+
+
+def _pt_take(pt: tuple, idx) -> tuple:
+    return tuple(t[idx] for t in pt)
+
+
+def msm_split_plain(xm, ym, inf8, km) -> tuple:
+    """The GLV split of the terms (csrc/msm.cu's msm_split): (M, 32) uint8
+    big-endian xm, ym, km and (M,) inf8 -> the 2M split terms, term j =
+    (|k1_j|, +-Q_j) and term M + j = (|k2_j|, +-phi(Q_j)): x, y (2M, 16)
+    limbs, inf (2M,) bool and the magnitudes' MSB-first 4-bit windows
+    (2M, 32) int64."""
+    m1, n1, m2, n2 = glv_split_plain(km)
+    x = _expand_limb_cols(xm)
+    y = _expand_limb_cols(ym)
+    ny = _f_neg(y)
+    bx = f_mul(x, _consts(x.device)["beta"])
+    inf = inf8 != 0
+    return (torch.cat([x, bx]),
+            torch.cat([_where(n1, ny, y), _where(n2, ny, y)]),
+            torch.cat([inf, inf]), _nibble_windows(torch.cat([m1, m2])))
+
+
+def _walk_layout(win: torch.Tensor, K: int) -> torch.Tensor:
+    """(2M, 32) windows of the split terms -> (32 K, 2M / K): row 32 k + w
+    holds the w-th window of stream k's terms in order."""
+    steps = win.shape[0] // K
+    return win.reshape(K, steps, MSM_WINDOWS).permute(0, 2, 1).reshape(
+        K * MSM_WINDOWS, steps)
+
+
 def msm_digits(km) -> torch.Tensor:
-    """(M, 32) uint8 big-endian scalars -> (K 64, M / K) int64 digits:
-    row 64 k + w holds the w-th 4-bit window (MSB first) of stream k's
-    scalars in order (the reference's stream-major layout)."""
-    M = km.shape[0]
-    K = msm_streams(M)
-    digits = _expand_nibble_windows(km).reshape(64, K, M // K)
-    return digits.permute(1, 0, 2).reshape(K * 64, M // K)
+    """(M, 32) uint8 big-endian scalars -> (32 K, 2M / K) int64 digits: row
+    32 k + w holds the w-th 4-bit window (MSB first) of the magnitudes of
+    stream k's split terms in order (the walk's layout)."""
+    m1, _n1, m2, _n2 = glv_split_plain(km)
+    return _walk_layout(_nibble_windows(torch.cat([m1, m2])),
+                        msm_streams(km.shape[0]))
 
 
-def msm_buckets_plain(xm, ym, inf8, km) -> tuple:
-    """The bucket walk (csrc/msm.cu's msm_buckets): (M, 32) uint8
-    big-endian xm, ym, km and (M,) inf8 -> the buckets (X, Y, Z) as
-    (K 64, 16, 16) limbs and inf (K 64, 16), lane 64 k + w, bucket d."""
+def msm_buckets_plain(xm, ym, inf8, km, tally=None) -> tuple:
+    """The split and the bucket walk (csrc/msm.cu's msm_split and
+    msm_buckets): (M, 32) uint8 big-endian xm, ym, km and (M,) inf8 -> the
+    buckets (X, Y, Z) as (32 K, 16, 16) limbs and inf (32 K, 16), lane
+    32 k + w, bucket d (bucket 0 unused, at infinity)."""
     M = xm.shape[0]
     K = msm_streams(M)
-    steps, lanes, dev = M // K, K * 64, xm.device
-    xs = _expand_limb_cols(xm).reshape(K, steps, N_LIMBS)
-    ys = _expand_limb_cols(ym).reshape(K, steps, N_LIMBS)
-    p_inf = (inf8 != 0).reshape(K, steps)
-    digits = msm_digits(km)
+    steps, lanes, dev = 2 * M // K, K * MSM_WINDOWS, xm.device
+    tx, ty, tinf, win = msm_split_plain(xm, ym, inf8, km)
+    xs = tx.reshape(K, steps, N_LIMBS)
+    ys = ty.reshape(K, steps, N_LIMBS)
+    p_inf = tinf.reshape(K, steps)
+    digits = _walk_layout(win, K)
     one = _consts(dev)["one"]
     bX = one.expand(lanes, 16, N_LIMBS).clone()
     bY = bX.clone()
@@ -1388,63 +1458,91 @@ def msm_buckets_plain(xm, ym, inf8, km) -> tuple:
     binf = torch.ones(lanes, 16, dtype=torch.bool, device=dev)
     for t in range(steps):
         d = digits[:, t]
-        qi = p_inf[:, t].repeat_interleave(64)
+        qi = p_inf[:, t].repeat_interleave(MSM_WINDOWS)
         hit = (d > 0) & ~qi
         rows = hit.nonzero().squeeze(1)
         if rows.numel() == 0:
             continue
         cols = d[rows]
-        k = rows // 64
+        k = rows // MSM_WINDOWS
         new = pt_add_mixed(
             (bX[rows, cols], bY[rows, cols], bZ[rows, cols],
              binf[rows, cols]),
-            xs[k, t], ys[k, t], torch.zeros_like(qi[rows]))
+            xs[k, t], ys[k, t], torch.zeros_like(qi[rows]), tally)
         bX[rows, cols], bY[rows, cols], bZ[rows, cols] = new[:3]
         binf[rows, cols] = new[3]
     return bX, bY, bZ, binf
 
 
-def msm_merge_plain(buckets: tuple, K: int) -> tuple:
+def msm_merge_plain(buckets: tuple, K: int, tally=None) -> tuple:
     """The pairwise stream merge (csrc/msm.cu's msm_merge levels): the
-    buckets of msm_buckets_plain -> the 64 windows' buckets of the sum,
-    (64, 16, 16) limbs and (64, 16) inf."""
-    cur = tuple(t.reshape(K, 1024, *t.shape[2:]) for t in buckets)
+    buckets of msm_buckets_plain -> the 32 windows' buckets of the sum,
+    (32, 16, 16) limbs and (32, 16) inf."""
+    per = MSM_WINDOWS * 16
+    cur = tuple(t.reshape(K, per, *t.shape[2:]) for t in buckets)
     k = K
     while k > 1:
         half = k // 2
-        lo = tuple(t[:half].reshape(half * 1024, *t.shape[2:]) for t in cur)
-        hi = tuple(t[half:].reshape(half * 1024, *t.shape[2:]) for t in cur)
-        cur = tuple(t.reshape(half, 1024, *t.shape[1:])
-                    for t in pt_add_full(lo, hi))
+        lo = tuple(t[:half].reshape(half * per, *t.shape[2:]) for t in cur)
+        hi = tuple(t[half:].reshape(half * per, *t.shape[2:]) for t in cur)
+        cur = tuple(t.reshape(half, per, *t.shape[1:])
+                    for t in pt_add_full(lo, hi, tally))
         k = half
-    return tuple(t.reshape(64, 16, *t.shape[2:]) for t in cur)
+    return tuple(t.reshape(MSM_WINDOWS, 16, *t.shape[2:]) for t in cur)
 
 
-def msm_tail_plain(windows: tuple) -> tuple:
-    """The bucket reduction and the Horner pass (csrc/msm.cu's msm_tail):
-    the windows' buckets -> the sum as a width-1 point."""
-    X, Y, Z, inf = windows
-    dev = X.device
-    running = total = _inf_points(64, dev)
-    for b in range(15, 0, -1):
-        running = pt_add_full(running, (X[:, b], Y[:, b], Z[:, b],
-                                        inf[:, b]))
-        total = pt_add_full(total, running)
-    acc = _inf_points(1, dev)
-    for w in range(64):
-        for _ in range(4):
-            acc = pt_double(acc)
-        acc = pt_add_full(acc, tuple(t[w:w + 1] for t in total))
-    return acc
+# the digits 1 .. 15 whose bit i is set, in increasing order: bit sum T_i's
+# 8 buckets (csrc/msm.cu's msm_reduce)
+_BIT_BUCKETS = [[b for b in range(1, 16) if (b >> i) & 1] for i in range(4)]
 
 
-def msm_accumulate_plain(xm, ym, inf8, km) -> tuple:
+def msm_reduce_plain(windows: tuple, tally=None) -> tuple:
+    """The weighted bucket sums (csrc/msm.cu's msm_reduce): the windows'
+    buckets -> the 32 window sums sum_b b B_b as (32, 16) limbs and (32,)
+    inf: T_i = the add tree of the 8 buckets whose bit i is set (pairs in
+    increasing b, then the lower subtree first), C1 = 2 T3 + T2,
+    C0 = 2 T1 + T0, then 4 C1 + C0."""
+    idx = torch.tensor(_BIT_BUCKETS, device=windows[0].device)  # (4, 8)
+    pts = tuple(t[:, idx] for t in windows)  # (32, 4, 8, ...)
+    while pts[3].shape[-1] > 1:
+        n = pts[3].shape[-1] // 2
+        lo = tuple(t[:, :, 0::2].reshape(-1, *t.shape[3:]) for t in pts)
+        hi = tuple(t[:, :, 1::2].reshape(-1, *t.shape[3:]) for t in pts)
+        pts = tuple(t.reshape(MSM_WINDOWS, 4, n, *t.shape[1:])
+                    for t in pt_add_full(lo, hi, tally))
+    bits = tuple(t[:, :, 0] for t in pts)  # (32, 4, ...): T0 .. T3
+    hi = tuple(t[:, [3, 1]].reshape(-1, *t.shape[2:]) for t in bits)
+    lo = tuple(t[:, [2, 0]].reshape(-1, *t.shape[2:]) for t in bits)
+    C = tuple(t.reshape(MSM_WINDOWS, 2, *t.shape[1:])
+              for t in pt_add_full(_pt_doubles(hi, 1), lo, tally))
+    return pt_add_full(_pt_doubles(_pt_take(C, (slice(None), 0)), 2),
+                       _pt_take(C, (slice(None), 1)), tally)
+
+
+def msm_combine_plain(wsums: tuple, tally=None) -> tuple:
+    """The window combination (csrc/msm.cu's msm_combine): the 32 window
+    sums, window 0 the most significant -> the sum as a width-1 point;
+    level l joins groups A, B of 2^l windows as 2^(4 2^l) A + B."""
+    g = wsums
+    for level in range(5):
+        a = _pt_doubles(_pt_take(g, slice(0, None, 2)), 4 << level)
+        g = pt_add_full(a, _pt_take(g, slice(1, None, 2)), tally)
+    return g
+
+
+def msm_accumulate_plain(xm, ym, inf8, km, tally=None) -> tuple:
     """The plain MSM on the kernel's schedule: the Jacobian sum
-    (X, Y, Z, inf) at width 1 (limbs; coordinates meaningless under
-    inf)."""
+    (X, Y, Z, inf) at width 1 (limbs; coordinates meaningless under inf).
+    ``tally`` (a dict, or None) receives the lanes where a complete add
+    met P == Q ("same") and P == -Q ("opposite"), per stage: "walk",
+    "merge", "reduce", "combine"."""
+    t = {} if tally is None else tally
     K = msm_streams(xm.shape[0])
-    return msm_tail_plain(msm_merge_plain(
-        msm_buckets_plain(xm, ym, inf8, km), K))
+    buckets = msm_buckets_plain(xm, ym, inf8, km, t.setdefault("walk", {}))
+    windows = msm_merge_plain(buckets, K, t.setdefault("merge", {}))
+    return msm_combine_plain(
+        msm_reduce_plain(windows, t.setdefault("reduce", {})),
+        t.setdefault("combine", {}))
 
 
 def _point_result(pt: tuple) -> tuple:
@@ -1466,7 +1564,7 @@ def _words_result(words: torch.Tensor) -> tuple:
 def _msm_tensors(xm, ym, inf8, km) -> list:
     """The four inputs as tensors on one device (numpy arrays go to the
     port's device), checked: (M, 32) uint8 xm, ym, km; (M,) uint8 or
-    bool inf8; M a multiple of the stream count."""
+    bool inf8; 2M a multiple of the stream count."""
     ts = [a if isinstance(a, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(np.asarray(a, np.uint8))).to(cuda_build.device())
         for a in (xm, ym, inf8, km)]
@@ -1474,28 +1572,30 @@ def _msm_tensors(xm, ym, inf8, km) -> list:
     dev = ts[0].device
     _check([ts[0], ts[1], ts[3]], dev, [(M, 32)] * 3, (torch.uint8,))
     _check([ts[2]], dev, [(M,)], (torch.uint8, torch.bool))
-    if M < 1 or M % msm_streams(M):
-        raise ValueError(f"M={M} is not a multiple of its stream count "
-                         f"{msm_streams(M)}")
+    if M < 1 or (2 * M) % msm_streams(M):
+        raise ValueError(f"M={M}: its {2 * M} split terms are not a "
+                         f"multiple of its stream count {msm_streams(M)}")
     return ts
 
 
 def _msm_launch(name: str, ts: list) -> torch.Tensor:
-    """Launch csrc/msm.cu's whole MSM (entry msm_run: the bucket walk, the
-    merge levels, the tail) on the current stream; returns its 25 result
-    words (int32) on the card. The bucket scratch is allocated here."""
+    """Launch csrc/msm.cu's whole MSM (entry msm_run: the split, the bucket
+    walk, the merge levels, the reduction, the combination) on the current
+    stream; returns its 25 result words (int32) on the card. The scratch
+    is allocated here."""
     xm, ym, inf8, km = ts
     M = xm.shape[0]
     K = msm_streams(M)
     dev = xm.device
-    fn = cuda_build.entry("msm_run", [ctypes.c_void_p] * 6
+    fn = cuda_build.entry("msm_run", [ctypes.c_void_p] * 8
                           + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    bk = torch.empty(16 * MSM_WORDS * K * 64, dtype=torch.int32, device=dev)
+    scratch = [torch.empty(n, dtype=torch.int32, device=dev)
+               for n in msm_scratch_words(M).values()]
     out = torch.empty(MSM_WORDS, dtype=torch.int32, device=dev)
     args = [xm.contiguous(), ym.contiguous(),
             inf8.to(torch.uint8).contiguous(), km.contiguous()]
-    rc = fn(*[t.data_ptr() for t in args], bk.data_ptr(), out.data_ptr(),
-            M, K, torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(*[t.data_ptr() for t in args + scratch], out.data_ptr(), M, K,
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch("msm_run", rc)
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[(name, M)] = LAUNCH_SHAPES.get((name, M), 0) + 1
@@ -1555,14 +1655,17 @@ def msm_partial_launch(xm, ym, inf8, km):
 # Port of the reference's ecdsa_verify_batch_device (:463) behind
 # ecdsa_verify_batch_jit (:508-512): the ECDSA rung the reference's
 # dispatch runs when BCP_SECP_PALLAS=0 turns the w4 kernels off, on
-# pack_records' planes. An MSB-first joint double-and-add, 256 steps of a
+# pack_records' planes. The reference's schedule is an MSB-first joint
+# double-and-add (ladder_step, ladder_verify_plain): 256 steps of a
 # doubling, the complete mixed add of G where the u1 bit is set and that
 # of Q where the u2 bit is set and Q is finite; then X == r0 Z^2, or
-# X == rn Z^2 where wrap_ok allows it, with q_inf lanes False. The
-# verdict is the group law's, exactly (every add is complete), so there
-# is no degen plane. The kernel is csrc/ladder_verify.cu (entry
-# ladder_verify); the plain version below serves CPU tensors and the
-# comparison on the card.
+# X == rn Z^2 where wrap_ok allows it, with q_inf lanes False. Only that
+# verdict is the contract, and it is the group law's, exactly (every add is
+# complete; there is no degen plane), so the kernel (csrc/ladder_verify.cu,
+# entry ladder_verify) runs a joint 4-bit window ladder instead, a quarter
+# of the doublings' steps; its plain version, ladder_windowed_plain, serves
+# CPU tensors and the comparison on the card, and is held against the bit
+# ladder in the tests.
 
 
 def ladder_step(acc: tuple, b1, b2, qx, qy, q_inf) -> tuple:
@@ -1590,12 +1693,57 @@ def ladder_verify_plain(u1_bits, u2_bits, qx, qy, q_inf, r0, rn, wrap_ok):
     return ok
 
 
+def _windows_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(B, 256) bool, MSB first -> (B, 64) int64 4-bit windows, MSB
+    first."""
+    w = bits.to(torch.int64).reshape(bits.shape[0], 64, 4)
+    return (w[..., 0] << 3) | (w[..., 1] << 2) | (w[..., 2] << 1) | w[..., 3]
+
+
+def ladder_windowed_plain(u1_bits, u2_bits, qx, qy, q_inf, r0, rn, wrap_ok,
+                          tally=None):
+    """The plain version of csrc/ladder_verify.cu's windowed ladder, in
+    ladder_verify_plain's layout and with its verdict: the Q table (Q, 2Q
+    by a doubling, then jQ = (j - 1) Q + Q by complete mixed adds), then
+    64 windows MSB first of 4 doublings, + d1 G (G's affine table) where
+    u1's digit d1 is not 0, + d2 Q (the Q table, a complete full add)
+    where u2's digit d2 is not 0 and Q is finite. ``tally`` (a dict, or
+    None) counts the lanes where a window's add met P == Q ("same") or
+    P == -Q ("opposite")."""
+    c = _consts(qx.device)
+    B = qx.shape[0]
+    d1 = _windows_of_bits(u1_bits)
+    d2 = _windows_of_bits(u2_bits)
+    finite = torch.zeros_like(q_inf)
+    tab = [(qx, qy, c["one"].expand_as(qx), finite)]
+    tab.append(pt_double(tab[0]))
+    for _j in range(3, 16):
+        tab.append(pt_add_mixed(tab[-1], qx, qy, finite))
+    q_tab = tuple(torch.stack([e[k] for e in tab]) for k in range(4))
+    lane = torch.arange(B, device=qx.device)
+    acc = _inf_points(B, qx.device)
+    for i in range(64):
+        acc = _pt_doubles(acc, 4)
+        g = d1[:, i]
+        with_g = pt_add_mixed(acc, c["gx"][g], c["gy"][g], g == 0, tally)
+        acc = pt_select(g != 0, with_g, acc)
+        q = d2[:, i]
+        on = (q != 0) & ~q_inf
+        entry = tuple(t[(q - 1).clamp(min=0), lane] for t in q_tab)
+        with_q = pt_add_full(acc, entry[:3] + (~on,), tally)
+        acc = pt_select(on, with_q, acc)
+    ok, _degen = _verify_final(acc, torch.zeros_like(q_inf), q_inf, r0, rn,
+                               wrap_ok)
+    return ok
+
+
 def ladder_planes_plain(u1_bits, u2_bits, qx, qy, q_inf, r0, rn, wrap_ok):
     """The plain version of ecdsa_verify_batch_jit on pack_records'
-    planes, converted to the port's layout on the inputs' own device."""
-    return ladder_verify_plain(_u32(u1_bits).T != 0, _u32(u2_bits).T != 0,
-                               _lim13(qx), _lim13(qy), q_inf != 0,
-                               _lim13(r0), _lim13(rn), wrap_ok != 0)
+    planes (the kernel's windowed schedule), converted to the port's
+    layout on the inputs' own device."""
+    return ladder_windowed_plain(_u32(u1_bits).T != 0, _u32(u2_bits).T != 0,
+                                 _lim13(qx), _lim13(qy), q_inf != 0,
+                                 _lim13(r0), _lim13(rn), wrap_ok != 0)
 
 
 def ecdsa_verify_batch_jit(u1_bits, u2_bits, qx, qy, q_inf, r0, rn, wrap_ok):

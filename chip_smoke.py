@@ -5,6 +5,8 @@ NVIDIA card.
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded   # phases 1 and 7a-7c alone, on every
                                       # card of a host with several
+    python3 chip_smoke.py --msm-teams # msm_run at every bucket with the
+                                      # walk and merges on teams of 2 and 4
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -12,7 +14,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              glv_pair.cu, sha256d_sweep.cu, sha256d_batch.cu, msm.cu,
              ladder_verify.cu; the ECDSA kernels share
              csrc/secp256k1_core.cuh, the GLV pair csrc/glv_lane.cuh, the
-             MSM and the bit ladder csrc/secp256k1_complete.cuh) by
+             GLV lane and the MSM csrc/glv_split.cuh, the MSM and the
+             ladder csrc/secp256k1_complete.cuh) by
              its own nvcc (sm_90a), all started together, from this
              checkout; print the build seconds, ptxas' registers, stack
              frame and spills per kernel, the w4 kernels' SASS local
@@ -22,7 +25,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              reported), the sweep kernels' SASS instruction counts
              (cuobjdump) beside the counts taken from their rounds, and
              the batch kernels' and the MSM kernels' (gated: no local
-             memory), and the bit ladder's (reported).
+             memory), and the windowed ladder's (reported).
 2. ecdsa   — the w4 field core alone (entry w4_field_selftest: fe_mul,
              fe_sqr, fe_add, fe_sub, fe_canon, the zero test and fe_eq on
              FIELD_EDGES x FIELD_EDGES and 4096 seeded random pairs)
@@ -53,23 +56,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              seeded scalars (counts zeroed just before, read just after):
              every lane equal to the Python glv_decompose, the whole equal
              to the plain version.
-2c. msm    — the Schnorr MSM (csrc/msm.cu, K9) at every bucket 64 ..
-             16384 on seeded terms of known discrete logs with a crafted
-             corpus (P == Q and P == -Q in buckets and merges, zero and
-             n - 1 scalars, flagged padding), its sum nonzero and zero:
-             the verdict entry and the partial entry's canonical Jacobian
-             triple equal to the plain version, the affine sum and the
-             verdict to the host's; device time of msm_run and of each
-             launch kind,
-             the plain version's wall, the IMAD bound and the chain floor.
-2d. ladder — the bit ladder (csrc/ladder_verify.cu, K8) through its
+2c. msm    — the Schnorr MSM (csrc/msm.cu, K9: the GLV split, the
+             bucket walk, the merges, the bit-sum reduction, the window
+             tree) at every bucket 64 .. 16384 on seeded terms of known
+             discrete logs with a crafted corpus (P == Q and P == -Q in
+             buckets and merges, zero and n - 1 scalars, flagged
+             padding), its sum nonzero and zero, and on a sparse crafted
+             corpus whose plain run must meet P == Q and P == -Q in the
+             walk, a merge, the reduction and the window tree: the verdict
+             entry and the partial entry's canonical Jacobian triple equal
+             to the plain version, the affine sum and the verdict to the
+             host's; device time of msm_run and of each launch kind (split,
+             walk, merges, reduction, window tree), the plain version's
+             wall, the IMAD bound (the fewer IMADs of this schedule and
+             of the Horner schedule: 64 windows, suffix sums, a Horner
+             pass) and the chain floor, each beside both schedules' on
+             the same inputs.
+2d. ladder — the windowed ladder (csrc/ladder_verify.cu, K8) through its
              wrapper ecdsa_verify_batch_jit at every plane bucket 32 ..
              16384 on pack_records' planes of seeded signatures with the
              crafted corpus (u1 = 0, Q = G, Q = -G, Q = G and Q = -G with
              u1 == u2, q_inf, wrap on and off, padding): every verdict
              equal to the plain version's lane for lane on the card and to
              the oracle; the entry timed by CUDA events, the plain
-             version's wall, the IMAD bound.
+             version's wall, the IMAD bound and the chain floor, each
+             beside the bit ladder's on the same data.
 3. sweeps  — each sweep entry (sweep_h7 at tile 2^20 and at the resident
              loop's 2^16 x 8, sweep_h7_pallas at 64 x 128 lanes x 4096
              tiles, sweep_exact at tile 2^16) against its plain version:
@@ -159,7 +170,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              block equal to the same blocks connected without script
              checks, the tampered tip rejected, MSM launches and the GLV
              launches of its ECDSA lanes counted, no fallback; 64 lanes
-             drawn at random held against the oracle.
+             drawn at random held against the oracle. And one
+             dispatch_packed slice of 8190 ECDSA signatures under
+             -ecdsakernel=msm: the w4 byte entry launched (the reference's
+             gate), no GLV launch, the oracle's verdicts.
 6. mining  — the mining main path at difficulty 1 (testnet, nBits
              0x1d00ffff: 2^32 hashes a block on average): generate_blocks
              on an on-disk testnet ChainstateManager with the exact engine
@@ -1260,7 +1274,8 @@ GLV_KERNELS = ("glv_dev_verify_kernel", "glv_verify_kernel",
     + GLV_PAIR_KERNELS
 BATCH_KERNELS = ("sha256d_headers_kernel", "sha256d_pairs_kernel",
                  "merkle_tree_kernel", "sha256d_chain_kernel")
-MSM_KERNELS = ("msm_buckets_kernel", "msm_merge_kernel", "msm_tail_kernel")
+MSM_KERNELS = ("msm_split_kernel", "msm_buckets_kernel", "msm_merge_kernel",
+               "msm_reduce_kernel", "msm_combine_kernel")
 LADDER_KERNELS = ("ladder_verify_kernel",)
 _ALU_ONLY = ("SHF", "SHL", "SHR", "LOP3", "PRMT", "ISETP")
 _NOT_ALU = {"BRA", "EXIT", "BAR", "LDS", "LDG", "STS", "STG", "ATOMG",
@@ -2443,25 +2458,31 @@ def msm_inputs(M: int, seed: int, zero_sum: bool) -> tuple:
     """An M-term MSM input (numpy (M, 32) uint8 xm, ym, km and (M,) inf8)
     with its sum, by known discrete logs (Q_j = c_j G, so the sum is
     (sum k_j c_j) G: one host point multiplication), and the crafted
-    corpus on top of random terms:
-    - stream 0 starts with Q, -Q, Q, Q under one scalar (P == -Q, then
-      infinity + Q, then P == Q in every bucket those digits reach), a
-      zero scalar and n - 1;
-    - the last eighth of every stream is flagged padding with garbage
-      coordinates and nonzero scalars (adds nothing);
-    - stream K/2 is a copy of stream 0 (the first merge level meets P ==
-      Q in every bucket) and, for K >= 4, stream K/2 + 1 the negation of
-      stream 1 (P == -Q in every bucket);
-    - zero_sum: one scalar of stream 0 (and its copy) makes the sum the
-      point at infinity.
+    corpus on top of random terms. The kernel's walk splits each term in
+    two (its |k1| half in stream o, its |k2| half in stream o + K/2, for
+    the original terms o S .. (o + 1) S - 1, S = 2M / K: "original stream"
+    o below, K/2 of them):
+    - original stream 0 starts with Q, -Q, Q, Q under one scalar (P == -Q,
+      then infinity + Q, then P == Q in every bucket those digits reach),
+      a zero scalar and n - 1;
+    - the last eighth of every original stream is flagged padding with
+      garbage coordinates and nonzero scalars (adds nothing);
+    - original stream K/4 is a copy of original stream 0 (the second merge
+      level meets P == Q in every bucket) and, for K >= 8, original
+      stream K/4 + 1 the negation of original stream 1 (P == -Q in every
+      bucket);
+    - zero_sum: one scalar of original stream 0 (and its copy) makes the
+      sum the point at infinity.
     Returns (xm, ym, inf8, km, want) with want the affine sum or None."""
     import numpy as np
 
     from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
 
     rng = random.Random(seed)
-    K = max(1, min(128, M // 32))
-    steps = M // K
+    K = S.msm_streams(M)
+    n_orig = max(1, K // 2)
+    steps = M // n_orig
     pad = steps // 8
     logs = [0] * M
     scal = [rng.randrange(1, O.N) for _ in range(M)]
@@ -2470,11 +2491,11 @@ def msm_inputs(M: int, seed: int, zero_sum: bool) -> tuple:
     c = rng.randrange(1, O.N)
     pt = O.point_mul(c, O.G)
     copies = {}
-    if K >= 2:
-        copies[K // 2] = (0, 1)
     if K >= 4:
-        copies[K // 2 + 1] = (1, -1)
-    for k in range(K):
+        copies[K // 4] = (0, 1)
+    if K >= 8:
+        copies[K // 4 + 1] = (1, -1)
+    for k in range(n_orig):
         if k in copies:
             continue
         for t in range(steps):
@@ -2524,41 +2545,180 @@ def msm_inputs(M: int, seed: int, zero_sum: bool) -> tuple:
     return xm, ym, np.asarray(flag, np.uint8), km, want
 
 
-def msm_work(km, inf8) -> dict:
-    """The point operations these inputs need on the kernel's schedule:
-    mixed adds of the bucket walk (a term into an occupied bucket; the
-    first into an empty one is a copy), full adds of the merge levels, the
-    reduction and the Horner pass where both sides are occupied, and the
-    Horner doublings once the sum is occupied; their IMADs; and the
-    longest chain of dependent product levels (a team of 4: one round a
-    level)."""
+def msm_tree_inputs(M: int, seed: int) -> tuple:
+    """A sparse crafted M-term MSM (every other term flagged) for the
+    kernel's reduction and window tree, as tests/test_torch_msm.py's
+    msm_tree_corpus: scalars below 2^112 (each |k2| half 0); at the head
+    of stream 0 one point four times under one scalar with windows 4 .. 20
+    nonzero (the walk meets P == -Q and P == Q); window 22's bucket 1 U in
+    stream 0 and in stream K/4, window 24's V and -V (the second merge
+    level meets P == Q and P == -Q); window 31's buckets 1 and 3 Q = -8 R,
+    window 30's buckets 5 and 7 R and -R (the bit sums meet P == Q and
+    P == -Q); 16 W_30 == W_31 and 16 W_28 == -W_29 (the window tree meets
+    P == Q and P == -Q). Returns what msm_inputs returns."""
     import numpy as np
 
-    M = km.shape[0]
-    K = max(1, min(128, M // 32))
-    steps = M // K
-    dig = np.stack([km >> 4, km & 15], axis=2).reshape(M, 64)
-    live = inf8 == 0
-    hits = np.zeros((K, 64, 16), np.int64)
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    rng = random.Random(seed)
+    K = S.msm_streams(M)
+    steps = 2 * M // K
+    logs, scal, flag = [0] * M, [0] * M, [True] * M
+    slots = {0: iter(range(steps)),
+             K // 4: iter(range(K // 4 * steps, K // 4 * steps + steps))}
+
+    def put(c, k, stream=0):
+        j = next(slots[stream])
+        logs[j], scal[j], flag[j] = c % O.N, k, False
+
+    c = rng.randrange(1, O.N)
+    kw = sum(rng.randrange(1, 16) << (4 * (31 - w)) for w in range(4, 21))
+    for sign in (1, -1, 1, 1):
+        put(sign * c, kw)
+    u, v = rng.randrange(1, O.N), rng.randrange(1, O.N)
+    put(u, 1 << 4 * (31 - 22))
+    put(u, 1 << 4 * (31 - 22), stream=K // 4)
+    put(v, 1 << 4 * (31 - 24))
+    put(-v, 1 << 4 * (31 - 24), stream=K // 4)
+    r = rng.randrange(1, O.N)
+    put(-8 * r, 1)
+    put(-8 * r, 3)
+    put(r, 5 << 4)
+    put(-r, 7 << 4)
+    w = rng.randrange(1, O.N)
+    put(w, 1 << 12)
+    put(-16 * w, 1 << 8)
+    total = sum(scal[j] * logs[j] for j in range(M) if not flag[j]) % O.N
+    xm = np.zeros((M, 32), np.uint8)
+    ym = np.zeros((M, 32), np.uint8)
+    km = np.zeros((M, 32), np.uint8)
+    for j in range(M):
+        x, y = (O.point_mul(logs[j], O.G) if not flag[j] else
+                (rng.getrandbits(256), rng.getrandbits(256)))
+        xm[j] = np.frombuffer(x.to_bytes(32, "big"), np.uint8)
+        ym[j] = np.frombuffer(y.to_bytes(32, "big"), np.uint8)
+        km[j] = np.frombuffer(scal[j].to_bytes(32, "big"), np.uint8)
+    return (xm, ym, np.asarray(flag, np.uint8), km,
+            O.point_mul(total, O.G) if total else None)
+
+
+# the GLV split of a term (csrc/glv_split.cuh): the 64-bit products of its
+# exact multi-word products (two roundings of 8x8, 8x4 and 4x8 words, then
+# 4x4, 4x5, 4x4 and 4x4), one IMAD.WIDE each, and beta x (one fe_mul)
+SPLIT_IMADS = 2 * (64 + 32 + 32) + 16 + 20 + 16 + 16 + IMAD_PER_FMUL
+
+
+def _imads(madd: int, full: int, dbl: int) -> int:
+    sq_m, mu_m = SQR_MUL_CMADD
+    sq_f, mu_f = SQR_MUL_CFADD
+    sq_d, mu_d = SQR_MUL_DOUBLE
+    return (madd * (sq_m * IMAD_PER_FSQR + mu_m * IMAD_PER_FMUL)
+            + full * (sq_f * IMAD_PER_FSQR + mu_f * IMAD_PER_FMUL)
+            + dbl * (sq_d * IMAD_PER_FSQR + mu_d * IMAD_PER_FMUL))
+
+
+def _bucket_hits(dig, live, K: int, windows: int):
+    """(K, windows, 16) counts of live terms a (stream, window, digit),
+    digit 0 zeroed (it adds nothing)."""
+    import numpy as np
+
+    steps = dig.shape[0] // K
+    hits = np.zeros((K, windows, 16), np.int64)
     for k in range(K):
         d = dig[k * steps:(k + 1) * steps][live[k * steps:(k + 1) * steps]]
-        for w in range(64):
+        for w in range(windows):
             hits[k, w] += np.bincount(d[:, w], minlength=16)
     hits[:, :, 0] = 0
-    madd = int(np.maximum(hits - 1, 0).sum())
-    occ = hits > 0
-    full = 0
-    half = K // 2
+    return hits
+
+
+def _merge_adds(occ) -> tuple:
+    """Full adds of the pairwise stream merge where both sides are
+    occupied; the merged occupancy."""
+    full, half = 0, occ.shape[0] // 2
     while half >= 1:
         full += int((occ[:half] & occ[half:2 * half]).sum())
         occ = occ[:half] | occ[half:2 * half]
         half //= 2
+    return full, occ[0]
+
+
+def msm_work(km, inf8) -> dict:
+    """The point operations these inputs need on the kernel's schedule
+    (csrc/msm.cu): mixed adds of the bucket walk over the GLV halves (a
+    term into an occupied bucket; the first into an empty one is a copy),
+    full adds of the merge levels, the bit-sum trees and the window tree
+    where both sides are occupied, and their doublings where the doubled
+    point is; their IMADs with the split's; and the longest chain of
+    dependent product levels at a team of 4 (one round a level): the
+    walk's busiest lane, log2 K merges, the reduction's 5 adds and 3
+    doublings, the window tree's 5 adds and 124 doublings. Beside them,
+    the Horner schedule on the same inputs (msm_work_horner)."""
+    import numpy as np
+
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    M = km.shape[0]
+    K = S.msm_streams(M)
+    m1, _n1, m2, _n2 = S.glv_decompose_batch_np(km)
+    be = np.concatenate([m1, m2])[:, ::-1]  # (2M, 16) big-endian
+    dig = np.stack([be >> 4, be & 15], axis=2).reshape(2 * M, 32)
+    live = np.concatenate([inf8 == 0, inf8 == 0])
+    hits = _bucket_hits(dig, live, K, 32)
+    madd = int(np.maximum(hits - 1, 0).sum())
+    full, occ = _merge_adds(hits > 0)
+    dbl = 0
+    win = []
+    for w in range(32):
+        bits = []
+        for i in range(4):
+            t = [bool(occ[w, b]) for b in range(1, 16) if (b >> i) & 1]
+            while len(t) > 1:
+                full += sum(a and b for a, b in zip(t[0::2], t[1::2]))
+                t = [a or b for a, b in zip(t[0::2], t[1::2])]
+            bits.append(t[0])
+        c = []
+        for hi, lo in ((3, 2), (1, 0)):
+            dbl += int(bits[hi])
+            full += int(bits[hi] and bits[lo])
+            c.append(bits[hi] or bits[lo])
+        dbl += 2 * int(c[0])
+        full += int(c[0] and c[1])
+        win.append(c[0] or c[1])
+    for level in range(5):
+        a, b = win[0::2], win[1::2]
+        dbl += sum(4 << level for x in a if x)
+        full += sum(x and y for x, y in zip(a, b))
+        win = [x or y for x, y in zip(a, b)]
+    levels = (int(np.maximum(hits - 1, 0).sum(axis=2).max()) * LEVELS_MADD
+              + (K.bit_length() - 1) * LEVELS_FADD
+              + 5 * LEVELS_FADD + 3 * LEVELS_DOUBLE
+              + 5 * LEVELS_FADD + 124 * LEVELS_DOUBLE)
+    return {"madd": madd, "full": full, "double": dbl,
+            "imads": _imads(madd, full, dbl) + SPLIT_IMADS * int(
+                (inf8 == 0).sum()),
+            "chain_levels": levels, "horner": msm_work_horner(km, inf8)}
+
+
+def msm_work_horner(km, inf8) -> dict:
+    """The same count on the Horner schedule (kept for comparison): K =
+    min(128, M / 32) streams of 64 windows over the whole scalars, the
+    suffix-sum reduction and the 64-window Horner pass."""
+    import numpy as np
+
+    M = km.shape[0]
+    K = max(1, min(128, M // 32))
+    dig = np.stack([km >> 4, km & 15], axis=2).reshape(M, 64)
+    hits = _bucket_hits(dig, inf8 == 0, K, 64)
+    madd = int(np.maximum(hits - 1, 0).sum())
+    full, occ = _merge_adds(hits > 0)
     win = []
     for w in range(64):
         run = tot = False
         for b in range(15, 0, -1):
-            full += int(run and occ[0, w, b])
-            run = run or bool(occ[0, w, b])
+            full += int(run and occ[w, b])
+            run = run or bool(occ[w, b])
             full += int(tot and run)
             tot = tot or run
         win.append(tot)
@@ -2568,33 +2728,30 @@ def msm_work(km, inf8) -> dict:
         dbl += 4 * acc
         full += int(acc and win[w])
         acc = acc or win[w]
-    sq_m, mu_m = SQR_MUL_CMADD
-    sq_f, mu_f = SQR_MUL_CFADD
-    sq_d, mu_d = SQR_MUL_DOUBLE
-    imads = (madd * (sq_m * IMAD_PER_FSQR + mu_m * IMAD_PER_FMUL)
-             + full * (sq_f * IMAD_PER_FSQR + mu_f * IMAD_PER_FMUL)
-             + dbl * (sq_d * IMAD_PER_FSQR + mu_d * IMAD_PER_FMUL))
     levels = (int(np.maximum(hits - 1, 0).sum(axis=2).max()) * LEVELS_MADD
               + (K.bit_length() - 1) * LEVELS_FADD + 30 * LEVELS_FADD
               + 256 * LEVELS_DOUBLE + 64 * LEVELS_FADD)
-    return {"madd": madd, "full": full, "double": dbl, "imads": imads,
-            "chain_levels": levels}
+    return {"madd": madd, "full": full, "double": dbl,
+            "imads": _imads(madd, full, dbl), "chain_levels": levels}
 
 
 def msm_case(M: int, seed: int, clock_hz: float, fe_cycles: float,
              reps: int = 20) -> dict:
     """The MSM kernel at one bucket, against its plain version on the card
     and the host's sum: for msm_inputs with a nonzero sum and with a zero
-    one, the verdict entry (schnorr_msm_is_infinity) and the partial entry
-    (msm_partial_point: its canonical Jacobian triple equal to the plain
-    version's, its affine point to the host's). Times (device time behind
-    a spin kernel): the C entry msm_run, and each launch kind alone
-    (msm_buckets, the merge levels, msm_tail); the plain version's wall;
-    the IMAD bound of msm_work and its chain floor (dependent levels x one
-    dependent fe_mul's cycles)."""
+    one, and for msm_tree_inputs, the verdict entry
+    (schnorr_msm_is_infinity) and the partial entry (msm_partial_point:
+    its canonical Jacobian triple equal to the plain version's, its affine
+    point to the host's); on msm_tree_inputs the plain version's complete
+    adds must meet P == Q and P == -Q in every stage. Times (device time
+    behind a spin kernel): the C entry msm_run, and each launch kind alone
+    (msm_split, msm_buckets, msm_merge (all its levels), msm_reduce,
+    msm_combine); the plain version's wall; the IMAD bound, the fewer of
+    msm_work's two schedules (this kernel's, and the Horner schedule's on
+    the whole scalars), each beside it; the chain floor (dependent levels
+    x one dependent fe_mul's cycles) of both."""
     import ctypes
 
-    import numpy as np
     import torch
 
     from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
@@ -2602,14 +2759,16 @@ def msm_case(M: int, seed: int, clock_hz: float, fe_cycles: float,
 
     dev = torch.device("cuda")
     K = S.msm_streams(M)
-    run_args = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     cases, err = [], 0
-    for zero_sum in (False, True):
-        xm, ym, inf8, km, want = msm_inputs(M, seed, zero_sum)
+    for kind in ("nonzero", "zero", "tree"):
+        xm, ym, inf8, km, want = (msm_tree_inputs(M, seed) if kind == "tree"
+                                  else msm_inputs(M, seed, kind == "zero"))
         ts = [torch.from_numpy(a).to(dev) for a in (xm, ym, inf8, km)]
         verdict = int(S.schnorr_msm_is_infinity(*ts)[0])
         (X, Y, Z), inf = S.msm_partial_point(*ts)
-        plain_ms, pt = time_once(lambda: S.msm_accumulate_plain(*ts), dev)
+        tally = {}
+        plain_ms, pt = time_once(
+            lambda: S.msm_accumulate_plain(*ts, tally=tally), dev)
         (pX, pY, pZ), pinf = S._point_result(pt)
         if inf:
             affine = None
@@ -2618,49 +2777,138 @@ def msm_case(M: int, seed: int, clock_hz: float, fe_cycles: float,
             affine = (X * zi * zi % O.P, Y * zi * zi * zi % O.P)
         checks = {
             "verdict_equal_plain": verdict == int(pinf),
-            "verdict_equal_host": verdict == int(want is None) == int(zero_sum),
+            "verdict_equal_host": verdict == int(want is None)
+            == int(kind == "zero"),
             "partial_equal_plain": ((X, Y, Z), inf) == ((pX, pY, pZ), pinf),
             "affine_equal_host": affine == want,
         }
+        if kind == "tree":
+            checks["every_special_case"] = all(
+                tally[st]["same"] and tally[st]["opposite"]
+                for st in ("walk", "merge", "reduce", "combine"))
         if not all(checks.values()):
-            raise AssertionError(f"msm M={M} zero_sum={zero_sum}: {checks}")
+            raise AssertionError(f"msm M={M} {kind}: {checks}, {tally}")
         err = max(err, max(abs(a - b) for a, b in zip((X, Y, Z),
                                                        (pX, pY, pZ))))
-        cases.append({"zero_sum": zero_sum, "plain_ms": plain_ms,
+        cases.append({"kind": kind, "plain_ms": plain_ms, "tally": tally,
                       "work": msm_work(km, inf8)})
     # times on the nonzero-sum input
     xm, ym, inf8, km, _want = msm_inputs(M, seed, False)
     ts = [torch.from_numpy(a).to(dev) for a in (xm, ym, inf8, km)]
     ptrs = [t.data_ptr() for t in ts]
-    bk = torch.empty(16 * S.MSM_WORDS * K * 64, dtype=torch.int32, device=dev)
+    sc = [torch.empty(n, dtype=torch.int32, device=dev)
+          for n in S.msm_scratch_words(M).values()]
+    terms, bk, ws = (t.data_ptr() for t in sc)
     out = torch.empty(S.MSM_WORDS, dtype=torch.int32, device=dev)
-    ms = time_device(entry_call("msm_run", run_args, *ptrs, bk.data_ptr(),
-                                out.data_ptr(), M, K), clock_hz, reps)
-    merge = [entry_call("msm_merge", [ctypes.c_void_p] + [ctypes.c_int] * 2
-                        + [ctypes.c_void_p], bk.data_ptr(), K, half)
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    ms = time_device(entry_call("msm_run", [P_] * 8 + [I_] * 2 + [P_], *ptrs,
+                                terms, bk, ws, out.data_ptr(), M, K),
+                     clock_hz, reps)
+    merge = [entry_call("msm_merge", [P_] + [I_] * 2 + [P_], bk, K, half)
              for half in (K >> i for i in range(1, K.bit_length()))]
-    stages = {
-        "msm_buckets": time_device(entry_call(
-            "msm_buckets", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-            + [ctypes.c_void_p], *ptrs, bk.data_ptr(), M, K),
-            clock_hz, reps),
-        "msm_merge": time_device(lambda: [f() for f in merge], clock_hz,
-                                 reps) if merge else 0.0,
-        "msm_tail": time_device(entry_call(
-            "msm_tail", [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                         ctypes.c_void_p], bk.data_ptr(), K, out.data_ptr()),
-            clock_hz, reps),
+    calls = {
+        "msm_split": entry_call("msm_split", [P_] * 5 + [I_, P_], *ptrs,
+                                terms, M),
+        "msm_buckets": entry_call("msm_buckets", [P_] * 2 + [I_] * 2 + [P_],
+                                  terms, bk, M, K),
+        "msm_merge": (lambda: [f() for f in merge]) if merge else None,
+        "msm_reduce": entry_call("msm_reduce", [P_, I_, P_, P_], bk, K, ws),
+        "msm_combine": entry_call("msm_combine", [P_] * 3, ws,
+                                  out.data_ptr()),
     }
+    stages = {k: time_device(f, clock_hz, reps) if f else 0.0
+              for k, f in calls.items()}
     work = cases[0]["work"]
     ops_bound = work["imads"] / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3
     bytes_bound = (M * (3 * 32 + 1) + 4 * S.MSM_WORDS) / HBM_BYTES_S * 1e3
-    b = {"bound_ms": max(ops_bound, bytes_bound),
-         "bound_by": "operations" if ops_bound >= bytes_bound else "bytes"}
+    old = work["horner"]
+    old_ops = old["imads"] / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3
+    # the function's least work: the fewer IMADs of the two schedules
+    least = min(ops_bound, old_ops)
+    b = {"bound_ms": max(least, bytes_bound),
+         "bound_by": "operations" if least >= bytes_bound else "bytes",
+         "bound_ms_split": max(ops_bound, bytes_bound),
+         "bound_ms_horner": max(old_ops, bytes_bound)}
     return {"M": M, "K": K, "ms": ms, "stages": stages,
             "plain_ms": cases[0]["plain_ms"], "max_abs_err": err,
             "work": work, **b,
             "chain_floor_ms": work["chain_levels"] * fe_cycles / clock_hz
-            * 1e3, "cases": 2 * len(cases)}
+            * 1e3,
+            "chain_floor_ms_horner": old["chain_levels"] * fe_cycles
+            / clock_hz * 1e3,
+            "tree_tally": cases[2]["tally"], "cases": 2 * len(cases)}
+
+
+def msm_team_sweep(clock_hz: float, reps: int = 20) -> list:
+    """csrc/msm.cu built twice, with its walk and merges on teams of 2
+    (-DMSM_WALK_TEAM=2) and of 4 (-DMSM_WALK_TEAM=4) at every size, both
+    nvcc processes started together; msm_run of each timed at every bucket
+    on msm_inputs' nonzero-sum input (device time behind the spin kernel;
+    the order 4, 2, 2, 4), each affine sum held against the host's."""
+    import ctypes
+
+    import torch
+
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as O
+    from bitcoincashplus_tpu_torch.ops import cuda_build
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    src = os.path.join(cuda_build.CSRC_DIR, "msm.cu")
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    procs = {}
+    for team in (2, 4):
+        out = os.path.join(cuda_build.BUILD_DIR, f"msm_team{team}.so")
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+               f"-DMSM_WALK_TEAM={team}", "-o", out, src]
+        procs[team] = (out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for team, (out, proc) in procs.items():
+        text, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"msm.cu with teams of {team}: {text[-2000:]}")
+        libs[team] = ctypes.CDLL(out)
+    dev = torch.device("cuda")
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    rows = []
+    for i, M in enumerate(MSM_BUCKETS):
+        K = S.msm_streams(M)
+        xm, ym, inf8, km, want = msm_inputs(M, 700 + i, False)
+        keep = [torch.from_numpy(a).to(dev) for a in (xm, ym, inf8, km)]
+        ptrs = [t.data_ptr() for t in keep]
+        calls = {}
+        for team, lib in libs.items():
+            sc = [torch.empty(n, dtype=torch.int32, device=dev)
+                  for n in S.msm_scratch_words(M).values()]
+            out = torch.empty(S.MSM_WORDS, dtype=torch.int32, device=dev)
+            keep += sc + [out]
+            fn = lib.msm_run
+            fn.argtypes = [P_] * 8 + [I_] * 2 + [P_]
+            fn.restype = ctypes.c_int
+            args = [*ptrs, *(t.data_ptr() for t in sc), out.data_ptr(), M, K]
+
+            def call(fn=fn, args=args):
+                cuda_build.check_launch("msm_run", fn(
+                    *args, torch.cuda.current_stream(dev).cuda_stream))
+            calls[team] = (call, out)
+        times = {2: [], 4: []}
+        for team in (4, 2, 2, 4):
+            times[team].append(time_device(calls[team][0], clock_hz, reps))
+        for team, (_call, out) in calls.items():
+            (X, Y, Z), inf = S._words_result(out)
+            zi = pow(Z, O.P - 2, O.P)
+            got = None if inf else (X * zi * zi % O.P, Y * zi ** 3 % O.P)
+            if got != want:
+                raise AssertionError(f"msm M={M}, teams of {team}: the sum "
+                                     f"differs from the host's")
+        rows.append({"M": M, "K": K, "lanes": 32 * K,
+                     "team4_ms": times[4], "team2_ms": times[2]})
+        log(f"msm_run M={M} (K={K}, {32 * K} lanes): teams of 4 "
+            f"{times[4][0]:.4f} / {times[4][1]:.4f} ms, teams of 2 "
+            f"{times[2][0]:.4f} / {times[2][1]:.4f} ms; both sums equal "
+            f"to the host's")
+    return rows
 
 
 def schnorr_records(signers: list, n: int, seed: int, forged=()) -> list:
@@ -2714,7 +2962,9 @@ def msm_dispatch_phase(signers: list, seed: int = 800,
     the bisect counters); then
     the drills at ecdsa_msm (fail-always: the batch served by the oracle,
     no launch; poison-output: the canary trips, then the oracle), each
-    with the oracle's verdicts."""
+    with the oracle's verdicts; then one dispatch_packed slice of
+    PACKED_LANES ECDSA signatures under -ecdsakernel=msm: the w4 byte
+    entry launched, no GLV entry, the oracle's verdicts, no fallback."""
     import numpy as np
 
     from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
@@ -2788,6 +3038,33 @@ def msm_dispatch_phase(signers: list, seed: int = 800,
             checks["canary_tripped"] = st["msm_canary_failures"] > 0
         rows[f"drill {mode}"] = {"launches": counts["launches"],
                                  "stats": st, "checks": checks}
+    # a packed ECDSA slice under -ecdsakernel=msm: the reference's gate
+    # sends it to the w4 byte entry, and no GLV leg runs
+    recs = signed_records(PACKED_LANES, seed + 70)
+    blobs = E.records_to_blobs(recs)
+    before = E._KERNEL
+    E.set_kernel("msm")
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        got = E.dispatch_packed(*blobs, backend="device").result()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+    finally:
+        E._KERNEL = before
+    st = counts["stats"]
+    rows["packed ecdsa"] = {
+        "n": len(recs), "wall_s": wall, "launches": counts["launches"],
+        "launch_shapes": counts["launch_shapes"],
+        "stats": {k: st[k] for k in MSM_STAT_KEYS},
+        "checks": {"w4_bytes_launched":
+                   counts["launches"]["w4_verify_bytes"] >= 1,
+                   "no_glv_launch": all(counts["launches"][k] == 0
+                                        for k in GLV_ENTRIES),
+                   "equal_oracle": bool(np.array_equal(got,
+                                                       host_oracle(recs))),
+                   "no_fallback": st["cpu_fallback_sigs"] == 0
+                   and st["fault_fallback_sigs"] == 0}}
     _zero_counts()
     return rows
 
@@ -2914,12 +3191,57 @@ def ladder_records(n: int, seed: int) -> list:
     return out
 
 
-def ladder_imad_count(u1_bits, u2_bits, q_inf) -> int:
-    """The least 32-bit IMADs the ladder needs on this data, per finite
-    lane: a doubling a step after the first set bit, a complete mixed add
-    a set bit but the first (an add into infinity is a copy; the rare
-    P == Q and P == -Q cases are counted as generic adds), and the final
-    check. (256, B) bit planes."""
+def _digits_of_planes(bits):
+    """(256, B) bool bit planes, MSB first -> (64, B) 4-bit windows."""
+    import numpy as np
+
+    w = bits.reshape(64, 4, -1).astype(np.int64)
+    return (w[:, 0] << 3) | (w[:, 1] << 2) | (w[:, 2] << 1) | w[:, 3]
+
+
+def ladder_imad_count(u1_bits, u2_bits, q_inf) -> dict:
+    """The 32-bit IMADs the windowed ladder's function needs on this data,
+    per finite lane: the Q table (a doubling and 13 complete mixed adds,
+    Q being affine), 4 doublings a window after the first nonzero digit, a
+    complete mixed add a nonzero digit of u1 (G's table is affine) and a
+    complete full add a nonzero digit of u2 (the Q table is Jacobian), but
+    not the first add (into infinity: a copy; the rare P == Q and P == -Q
+    cases counted as generic adds), and the final check. The kernel takes
+    the full add for G's digits too, to save registers: that is its cost,
+    not the function's. And the longest lane's chain of dependent product
+    levels at a team of 4 (the table's 3 + 13 x 6, 3 a doubling, 6 an add,
+    2 for the check). (256, B) bit planes. Beside them, the bit ladder on
+    the same data (ladder_imad_count_bits)."""
+    import numpy as np
+
+    dbl, madd, fadd, final = (
+        s * IMAD_PER_FSQR + m * IMAD_PER_FMUL
+        for s, m in (SQR_MUL_LADDER_DOUBLE, SQR_MUL_CMADD, SQR_MUL_CFADD,
+                     SQR_MUL_LADDER_FINAL))
+    live = ~np.asarray(q_inf, bool)
+    d1 = _digits_of_planes(np.asarray(u1_bits) != 0)
+    d2 = _digits_of_planes(np.asarray(u2_bits) != 0)
+    nz = (d1 != 0) | (d2 != 0)
+    started = nz.any(0)
+    first = np.where(started, nz.argmax(0), 64)
+    doublings = 4 * np.maximum(0, 63 - first)
+    # the first add is u1's where its digit in the first window is nonzero
+    g_first = started & (d1[np.minimum(first, 63), np.arange(d1.shape[1])]
+                         != 0)
+    madds = (d1 != 0).sum(0) - g_first
+    fadds = (d2 != 0).sum(0) - (started & ~g_first)
+    imads = (dbl + 13 * madd) + dbl * doublings + madd * madds \
+        + fadd * fadds + final * started
+    levels = 3 + 13 * 6 + 3 * doublings + 6 * (madds + fadds) + 2 * started
+    return {"imads": int(imads[live].sum()),
+            "chain_levels": int(levels[live].max()) if live.any() else 0,
+            "bits": ladder_imad_count_bits(u1_bits, u2_bits, q_inf)}
+
+
+def ladder_imad_count_bits(u1_bits, u2_bits, q_inf) -> dict:
+    """The same count on the bit ladder (kept for comparison): a
+    doubling a step after the first set bit, a complete mixed add a set
+    bit but the first, and the final check; the longest lane's chain."""
     import numpy as np
 
     dbl, madd, final = (s * IMAD_PER_FSQR + m * IMAD_PER_FMUL
@@ -2935,19 +3257,22 @@ def ladder_imad_count(u1_bits, u2_bits, q_inf) -> int:
     doublings = np.maximum(0, 255 - first)
     adds = b1.sum(0) + b2.sum(0) - started
     imads = dbl * doublings + madd * adds + final * started
-    return int(imads[live].sum())
+    levels = 3 * doublings + 6 * adds + 2 * started
+    return {"imads": int(imads[live].sum()),
+            "chain_levels": int(levels[live].max()) if live.any() else 0}
 
 
-def ladder_case(B: int, seed: int, clock_hz: float,
+def ladder_case(B: int, seed: int, clock_hz: float, fe_cycles: float = 0.0,
                 device: str = "cuda") -> dict:
-    """The bit ladder (entry ladder_verify) at one plane bucket on
+    """The windowed ladder (entry ladder_verify) at one plane bucket on
     pack_records' planes of ladder_records, with craft_lanes' q_inf and
     wrap lanes and padding: the wrapper's verdicts equal to the plain
     version's lane for lane on the card and to the oracle (q_inf, wrap-off
     and padding lanes False); the entry timed by CUDA events; the plain
-    version's wall; the bound. (On a CPU device the wrapper itself takes
-    the plain version, and nothing is timed: a rehearsal of the
-    checks.)"""
+    version's wall; the bound and the chain floor, beside the bit
+    ladder's. (On a CPU device the
+    wrapper itself takes the plain version, and nothing is timed: a
+    rehearsal of the checks.)"""
     import ctypes
 
     import numpy as np
@@ -2998,14 +3323,26 @@ def ladder_case(B: int, seed: int, clock_hz: float,
         if not np.array_equal(out.cpu().numpy().astype(bool), ok):
             raise AssertionError(f"ladder_verify B={B}: the timed launches "
                                  f"differ from the wrapper's")
-    imads = ladder_imad_count(arrays["u1"], arrays["u2"], arrays["q_inf"])
+    work = ladder_imad_count(arrays["u1"], arrays["u2"], arrays["q_inf"])
     in_bytes = B * (2 * 256 * 4 + 4 * 20 * 4 + 2)
-    ops_ms = imads / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3
     bytes_ms = (in_bytes + B) / HBM_BYTES_S * 1e3
+
+    def bound_of(imads):
+        return max(imads / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3, bytes_ms)
+
+    ops_ms = work["imads"] / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3
     return {"B": B, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_ms": bound_of(work["imads"]),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "imads": imads, "bytes_in": in_bytes, "max_abs_err": err,
+            "bound_ms_bits": bound_of(work["bits"]["imads"]),
+            "imads": work["imads"], "imads_bits": work["bits"]["imads"],
+            "chain_levels": work["chain_levels"],
+            "chain_levels_bits": work["bits"]["chain_levels"],
+            "chain_floor_ms": work["chain_levels"] * fe_cycles / clock_hz
+            * 1e3,
+            "chain_floor_ms_bits": work["bits"]["chain_levels"] * fe_cycles
+            / clock_hz * 1e3,
+            "bytes_in": in_bytes, "max_abs_err": err,
             "sigs_per_s": B / (ms / 1e3), "valid": int(ok.sum())}
 
 
@@ -3405,7 +3742,8 @@ def shard_msm_phase(clock_hz: float, sizes=SHARD_MSM, seed: int = 1400,
     ts = S._msm_tensors(*[torch.from_numpy(a).to(dev) for a in packed])
     plain_ms, _pt = time_once(lambda: S.msm_accumulate_plain(*ts), dev)
     lname1 = next(iter(lays))
-    imads = sum(w["imads"] for w in work[lname1])
+    # each shard's least work: the fewer IMADs of msm_work's two schedules
+    imads = sum(min(w["imads"], w["horner"]["imads"]) for w in work[lname1])
     nbytes = packed[0].shape[0] * (3 * 32 + 1) + 4 * S.MSM_WORDS
     row = {"M": packed[0].shape[0], "terms": len(terms), "ms": ms,
            "plain_ms": plain_ms, "imads": imads,
@@ -3852,8 +4190,9 @@ def dev_tip(summary: dict) -> bytes:
 
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--sharded"]):
-        print("usage: chip_smoke.py [--sharded]", file=sys.stderr)
+    if args not in ([], ["--sharded"], ["--msm-teams"]):
+        print("usage: chip_smoke.py [--sharded | --msm-teams]",
+              file=sys.stderr)
         return 2
     sharded_only = args == ["--sharded"]
     try:
@@ -3887,6 +4226,11 @@ def main() -> int:
     clock_hz = clock_mhz * 1e6
     log(f"card: {card}, max SM clock {clock_mhz:.0f} MHz, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+    if args == ["--msm-teams"]:
+        rows = msm_team_sweep(clock_hz)
+        print(json.dumps({"card": card, "msm_teams": rows}))
+        return 0
 
     # 1. build: each csrc/*.cu by its own nvcc, all started together
     t0 = time.monotonic()
@@ -3991,7 +4335,8 @@ def main() -> int:
                  if k.startswith(MSM_KERNELS)}
     for k, v in msm_build.items():
         log(f"MSM build: {k}: {v}")
-    if len(msm_build) != len(MSM_KERNELS) or any(
+    # (the walk and the merge have two instances each: teams of 4 and 2)
+    if len(msm_build) != len(MSM_KERNELS) + 2 or any(
             v.get("registers") is None or v["stack"] or v["spill_stores"]
             or v["spill_loads"] or v["ldl_stl"] for v in msm_build.values()):
         raise AssertionError(f"MSM kernels missing from the build report or "
@@ -4040,24 +4385,34 @@ def main() -> int:
     msm_rows = [msm_case(M, 700 + i, clock_hz, fe_cycles)
                 for i, M in enumerate(MSM_BUCKETS)]
     for r in msm_rows:
+        w, old = r["work"], r["work"]["horner"]
         log(f"msm M={r['M']} (K={r['K']}): msm_run {r['ms']:.4f} ms (launch "
             f"kinds {', '.join(f'{k} {v:.4f}' for k, v in r['stages'].items())} ms), "
             f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}: {r['work']['madd']} mixed adds, "
-            f"{r['work']['full']} full adds, {r['work']['double']} "
-            f"doublings), chain floor {r['chain_floor_ms']:.4f} ms "
-            f"({r['work']['chain_levels']} dependent product levels x "
-            f"{fe_cycles:.0f} cycles); {r['cases']} results equal to the "
-            f"plain version and the host's sum")
+            f"({r['bound_by']}; the fewer of this schedule's "
+            f"{r['bound_ms_split']:.4f} ms: {w['madd']} mixed adds, "
+            f"{w['full']} full adds, {w['double']} doublings, and the "
+            f"Horner schedule's {r['bound_ms_horner']:.4f} ms: "
+            f"{old['madd']}, {old['full']}, {old['double']}), chain floor {r['chain_floor_ms']:.4f} ms "
+            f"({w['chain_levels']} dependent product levels x "
+            f"{fe_cycles:.0f} cycles; the Horner schedule "
+            f"{old['chain_levels']} levels, "
+            f"{r['chain_floor_ms_horner']:.4f} ms); {r['cases']} "
+            f"results equal to the plain version and the host's sum; the "
+            f"crafted tree corpus's special cases {r['tree_tally']}")
     # 2d. the bit ladder (K8) at every plane bucket, against its plain
     # version and the oracle
-    ladder_rows = [ladder_case(B, 950 + i, clock_hz)
+    ladder_rows = [ladder_case(B, 950 + i, clock_hz, fe_cycles)
                    for i, B in enumerate(LADDER_SHAPES)]
     for r in ladder_rows:
         log(f"ladder_verify B={r['B']}: kernel {r['ms']:.3f} ms "
             f"({r['sigs_per_s']:.0f} sigs/s), plain {r['plain_ms']:.1f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['imads']} "
-            f"IMADs; {r['bytes_in']} bytes in), {r['valid']} valid lanes; "
+            f"IMADs; {r['bytes_in']} bytes in; the bit ladder "
+            f"{r['bound_ms_bits']:.4f} ms, {r['imads_bits']} IMADs), chain "
+            f"floor {r['chain_floor_ms']:.4f} ms ({r['chain_levels']} "
+            f"levels; the bit ladder's {r['chain_levels_bits']} levels, "
+            f"{r['chain_floor_ms_bits']:.4f} ms), {r['valid']} valid lanes; "
             f"equal to the plain version lane for lane and to the oracle")
     log(f"GLV_LAUNCH (most lanes, team code, block): {S.GLV_LAUNCH}; team "
         f"codes {S.GLV_TEAMS} ({', '.join(map(team_name, S.GLV_TEAMS))})")
@@ -4506,9 +4861,12 @@ def main() -> int:
             "bound_ms": msm_main["bound_ms"],
             "bound_by": msm_main["bound_by"], "library_ms": None,
             "M": 4096, "chain_floor_ms": msm_main["chain_floor_ms"],
+            "kernels": list(MSM_KERNELS),
             "shapes": [{k: r[k] for k in ("M", "K", "ms", "stages",
                                           "plain_ms", "bound_ms",
-                                          "chain_floor_ms", "work")}
+                                          "bound_ms_split", "bound_ms_horner",
+                                          "chain_floor_ms",
+                                          "chain_floor_ms_horner", "work")}
                        for r in msm_rows]})
     # the bit ladder: its launches on the node's -reindex under
     # BCP_SECP_PALLAS=0, at the shape that run launched most
@@ -4527,9 +4885,12 @@ def main() -> int:
         **{k: ladder_main[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "B")},
         "library_ms": None,
-        "shapes": [{**{k: r[k] for k in ("B", "ms", "plain_ms", "bound_ms",
-                                         "imads", "bytes_in",
-                                         "sigs_per_s")},
+        "chain_floor_ms": ladder_main["chain_floor_ms"],
+        "shapes": [{**{k: r[k] for k in (
+            "B", "ms", "plain_ms", "bound_ms", "bound_ms_bits", "imads",
+            "imads_bits", "chain_levels", "chain_levels_bits",
+            "chain_floor_ms", "chain_floor_ms_bits", "bytes_in",
+            "sigs_per_s")},
                     "launches": ladder_counts.get(r["B"], 0)}
                    for r in ladder_rows]})
     kernels += shard_kernel_rows(ss, sm, sn)

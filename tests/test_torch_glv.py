@@ -180,7 +180,8 @@ def test_constants_match_the_reference_and_the_kernel():
                  "GLV_COMB_TEETH"):
         assert getattr(T, name) == getattr(J, name), name
     src = "".join(open(os.path.join(cuda_build.CSRC_DIR, f)).read()
-                  for f in ("glv_lane.cuh", "glv_verify.cu", "glv_pair.cu"))
+                  for f in ("glv_split.cuh", "glv_lane.cuh", "glv_verify.cu",
+                            "glv_pair.cu"))
     want = {"c_beta": T.BETA, "c_n": N, "c_half_n": (N + 1) // 2,
             "c_g1": T._GLV_G1_INT, "c_g2": T._GLV_G2_INT, "c_b2": T._GLV_B2,
             "c_minus_b1": T._GLV_MINUS_B1, "c_a1": T._GLV_A1,
@@ -603,3 +604,33 @@ def test_validate_chain_under_glv_matches_the_cpu_engine(tmp_path):
     assert st.reject_confirm_sigs >= 1
     _cs, cpu = sigchain.validate_chain(d, "cpu", depth=1)
     assert dev["digest"] == cpu["digest"] and dev["best"] == cpu["best"]
+
+
+def test_dispatch_packed_under_msm_takes_the_w4_byte_rung(monkeypatch):
+    """Under -ecdsakernel=msm the packed entry gates the GLV legs as the
+    reference does (``active_kernel() == "glv" and glv_enabled()``, with
+    ``glv_dev_enabled()`` for the device split:
+    bitcoincashplus_tpu/ops/ecdsa_batch.py:1868 and :1905): packed ECDSA
+    blobs reach the w4 byte rung once and no GLV rung. With
+    BCP_SECP_PALLAS=0 the packed leg is off under msm, and the blobs take
+    the record route, where the reference's dispatch_batch sends ECDSA
+    lanes under msm to the GLV device split. Verdicts are the oracle's."""
+    recs = make_records(36, 14)
+    blobs = E.records_to_blobs(recs)
+    calls = _spy(monkeypatch, RUNGS + ("ecdsa_verify_batch_jit",))
+    E.set_kernel("msm")
+    got = E.dispatch_packed(*blobs, backend="device").result()
+    assert got.tolist() == oracle_verdicts(recs)
+    assert calls == {RUNGS[0]: 0, RUNGS[1]: 0, RUNGS[2]: 1, RUNGS[3]: 0,
+                     "ecdsa_verify_batch_jit": 0}
+    st = E.STATS
+    assert st.glv_dispatches == 0 and st.glv_dev_dispatches == 0
+    assert st.buckets_used == {1024: 1}
+    assert st.cpu_fallback_sigs == 0 and st.fault_fallback_sigs == 0
+    monkeypatch.setenv("BCP_SECP_PALLAS", "0")
+    got = E.dispatch_packed(*blobs, backend="device").result()
+    assert got.tolist() == oracle_verdicts(recs)
+    assert calls == {RUNGS[0]: 1, RUNGS[1]: 0, RUNGS[2]: 1, RUNGS[3]: 0,
+                     "ecdsa_verify_batch_jit": 0}
+    assert st.glv_dev_dispatches == 1 and st.msm_dispatches == 0
+    assert st.cpu_fallback_sigs == 0 and st.fault_fallback_sigs == 0

@@ -130,6 +130,57 @@ def test_plain_ladder_matches_the_oracle_on_the_crafted_corpus(corpus):
     assert not ok[len(recs):].any()  # padding lanes are poisoned
 
 
+def _port_layout(arrays):
+    """pack_records' planes -> ladder_verify_plain's layout (CPU)."""
+    u1, u2, qx, qy, qi, r0, rn, wr = tensors(arrays)
+    return (T._u32(u1).T != 0, T._u32(u2).T != 0, T._lim13(qx),
+            T._lim13(qy), qi != 0, T._lim13(r0), T._lim13(rn), wr != 0)
+
+
+def _window_meets_lanes():
+    """Two lanes in ladder_verify_plain's layout where a later window's Q
+    add meets the accumulator: u1 = 0x110, u2 = 0x10 and Q = 17 G (window
+    62: 16 G + G = 17 G, then + 17 G, P == Q; the sum 544 G, its x as r0:
+    valid) or Q = -17 G (P == -Q; the sum is infinity: invalid)."""
+    q = oracle.point_mul(17, G)
+    qs = [q, (q[0], P - q[1])]
+    r0 = oracle.point_mul(544, G)[0]
+
+    def bits(v):
+        return [bool((v >> (255 - i)) & 1) for i in range(256)]
+
+    return (torch.tensor([bits(0x110)] * 2), torch.tensor([bits(0x10)] * 2),
+            T.to_limbs([p[0] for p in qs]), T.to_limbs([p[1] for p in qs]),
+            torch.zeros(2, dtype=torch.bool), T.to_limbs([r0, r0]),
+            T.to_limbs([0, 0]), torch.zeros(2, dtype=torch.bool))
+
+
+def test_windowed_ladder_matches_the_bit_ladder_and_the_oracle(corpus):
+    """The kernel's schedule (ladder_windowed_plain, behind the wrapper on
+    the CPU) against the reference's bit ladder (ladder_verify_plain) and
+    the oracle, lane for lane, on the crafted corpus and on two lanes
+    where a later window's add meets the accumulator; the windowed
+    ladder's complete adds meet P == Q and P == -Q there."""
+    recs, arrays, kinds, ok = corpus
+    port = _port_layout(arrays)
+    crafted = _window_meets_lanes()
+    both = [torch.cat([a, b]) for a, b in zip(port, crafted)]
+    bit = T.ladder_verify_plain(*both)
+    assert bit.tolist() == ok.tolist() + [True, False]
+    tally = {}
+    assert T.ladder_windowed_plain(*crafted, tally=tally).tolist() == \
+        [True, False]
+    assert tally["same"] >= 1 and tally["opposite"] >= 1
+    tally = {}
+    assert T.ladder_windowed_plain(*port, tally=tally).tolist() == \
+        ok.tolist()
+    assert tally["same"] >= 1 and tally["opposite"] >= 1  # lanes 1, 23
+    want = np.zeros(B, bool)
+    want[:len(recs)] = jeb._verify_cpu(recs)
+    want[kinds["q_inf"] + kinds["wrap_off"]] = False
+    assert ok.tolist() == want.tolist()
+
+
 def test_wrap_ok_gate_blocks_bogus_wraparound(corpus):
     """The reference's case (tests/unit/test_ecdsa_batch.py:98):
     pack_records' wrap_ok is r + n < p and padding stays gated off; and
@@ -354,18 +405,21 @@ def test_no_card_raises_kernel_unavailable(monkeypatch):
 
 
 def test_kernel_g_matches_the_oracle():
-    """csrc/ladder_verify.cu carries G's coordinates as literals: hold them
-    against the oracle."""
+    """csrc/ladder_verify.cu carries G's table (jG, j = 1 .. 15, affine) as
+    literals: hold them against the oracle."""
     import os
     import re
 
     src = open(os.path.join(os.path.dirname(T.__file__), "..", "csrc",
                             "ladder_verify.cu")).read()
-    coords = []
-    for name in ("c_gx", "c_gy"):
-        body = src[src.index(f"{name}[8] = {{"):]
-        body = body[:body.index("};")]
-        words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]{8})u", body)]
-        assert len(words) == 8
-        coords.append(sum(w << (32 * i) for i, w in enumerate(words)))
-    assert tuple(coords) == G
+    body = src[src.index("c_gtab[15][2][8] = {"):]
+    body = body[:body.index("};")]
+    words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]{8})u", body)]
+    assert len(words) == 15 * 16
+    coords = [sum(w << (32 * i) for i, w in enumerate(words[8 * c:8 * c + 8]))
+              for c in range(30)]
+    want, pt = [], G
+    for _j in range(15):
+        want += list(pt)
+        pt = oracle.point_add(pt, G)
+    assert coords == want

@@ -172,15 +172,34 @@ def test_complete_adds_match_jax_on_the_crafted_cases(form, monkeypatch):
 
 # ---- the MSM -------------------------------------------------------------------
 
+def _reference_halves(km) -> tuple:
+    """The reference's glv_decompose of each (M, 32) big-endian scalar:
+    (|k1| (M, 16) big-endian bytes, n1, |k2|, n2)."""
+    rows = [J.glv_decompose(int.from_bytes(bytes(k), "big")) for k in km]
+    mags = [np.frombuffer(b"".join(r[i].to_bytes(16, "big") for r in rows),
+                          np.uint8).reshape(len(rows), 16) for i in (0, 2)]
+    return mags[0], [r[1] for r in rows], mags[1], [r[3] for r in rows]
+
+
 def test_digit_and_limb_layout_match_jax():
+    """The walk's digits: the MSB-first 4-bit windows
+    (J._expand_nibble_windows) of the reference's split halves, |k1| of
+    term j at split term j and |k2| at M + j, stream-major; the stream
+    counts of the MSM buckets keep every walk at 32 split terms up to
+    8,192 terms, 64 at 16,384."""
     rng = np.random.default_rng(3)
     km = rng.integers(0, 256, (256, 32), dtype=np.uint8)
     K = T.msm_streams(256)
-    want = np.asarray(J._expand_nibble_windows(jnp.asarray(km))).reshape(
-        64, K, 256 // K).transpose(1, 0, 2).reshape(K * 64, 256 // K)
+    m1, _n1, m2, _n2 = _reference_halves(km)
+    win = np.asarray(J._expand_nibble_windows(jnp.asarray(
+        np.concatenate([m1, m2]))))                      # (32, 2M)
+    want = win.reshape(32, K, 512 // K).transpose(1, 0, 2).reshape(
+        K * 32, 512 // K)
     assert np.array_equal(T.msm_digits(torch.from_numpy(km)).numpy(), want)
     assert [T.msm_streams(m) for m in jeb._MSM_BUCKETS] == \
-        [2, 8, 32, 128, 128, 128]
+        [4, 16, 64, 256, 512, 512]
+    assert [2 * m // T.msm_streams(m) for m in jeb._MSM_BUCKETS] == \
+        [32] * 5 + [64]
     xm = rng.integers(0, 256, (8, 32), dtype=np.uint8)
     jl = T.limbs_from_jax(np.asarray(J._expand_limb_cols(jnp.asarray(xm))))
     tl = T._expand_limb_cols(torch.from_numpy(xm))
@@ -188,60 +207,172 @@ def test_digit_and_limb_layout_match_jax():
         [v % P for v in T.from_limbs(tl)]
 
 
+def test_msm_split_matches_the_reference():
+    """msm_split_plain (csrc/msm.cu's msm_split) on the edge scalars 0, 1,
+    n - 1, lambda, lambda + 1 and seeded random ones: each half's
+    magnitude and sign equal to the reference's glv_decompose, k1 +
+    lambda k2 == k (mod n); term j keeps (x, +-y), term M + j is
+    (beta x, +-y), each y negated where its half is negative."""
+    rng = random.Random(5)
+    ks = [0, 1, N - 1, J.LAMBDA, J.LAMBDA + 1] + [rng.randrange(N)
+                                                   for _ in range(11)]
+    M = len(ks)
+    pts = [oracle.point_mul(rng.randrange(1, N), G) for _ in range(M)]
+
+    def mat(vals):
+        return torch.from_numpy(np.frombuffer(b"".join(
+            v.to_bytes(32, "big") for v in vals), np.uint8).reshape(M, 32)
+            .copy())
+
+    km = mat(ks)
+    x, y, inf, win = T.msm_split_plain(mat([p[0] for p in pts]),
+                                       mat([p[1] for p in pts]),
+                                       torch.zeros(M, dtype=torch.uint8), km)
+    assert not inf.any() and win.shape == (2 * M, 32)
+    mags = [sum(int(d) << (4 * (31 - i)) for i, d in enumerate(row))
+            for row in win.tolist()]
+    xs = [v % P for v in T.from_limbs(x)]
+    ys = [v % P for v in T.from_limbs(y)]
+    m1, n1, m2, n2 = _reference_halves(km.numpy())
+    for j, k in enumerate(ks):
+        a, b = mags[j], mags[M + j]
+        assert (a, b) == (int.from_bytes(bytes(m1[j]), "big"),
+                          int.from_bytes(bytes(m2[j]), "big")), k
+        k1 = -a if n1[j] else a
+        k2 = -b if n2[j] else b
+        assert (k1 + J.LAMBDA * k2 - k) % N == 0, k
+        assert xs[j] == pts[j][0] and xs[M + j] == T.BETA * pts[j][0] % P
+        assert ys[j] == (P - pts[j][1] if n1[j] else pts[j][1])
+        assert ys[M + j] == (P - pts[j][1] if n2[j] else pts[j][1])
+
+
+def _mat(vals, M):
+    return np.frombuffer(b"".join(v.to_bytes(32, "big") for v in vals),
+                         np.uint8).reshape(M, 32).copy()
+
+
+def _terms(logs, scal, flag, rng) -> tuple:
+    """Numpy (xm, ym, inf8, km) of terms c_j G (flagged terms: garbage
+    coordinates) and the affine sum (None: infinity)."""
+    M = len(logs)
+    total = sum(s * c for s, c, f in zip(scal, logs, flag) if not f) % N
+    known = {}  # log -> point: consecutive logs cost one affine add
+    rows = []
+    for j in range(M):
+        c = logs[j]
+        if flag[j]:
+            rows.append((rng.getrandbits(256), rng.getrandbits(256)))
+            continue
+        if c not in known:
+            if (N - c) % N in known:
+                x, y = known[(N - c) % N]
+                known[c] = (x, P - y)
+            elif (c - 1) % N in known:
+                known[c] = oracle.point_add(known[(c - 1) % N], G)
+            else:
+                known[c] = oracle.point_mul(c, G)
+        rows.append(known[c])
+    return (_mat([r[0] for r in rows], M), _mat([r[1] for r in rows], M),
+            np.asarray(flag, np.uint8), _mat(scal, M),
+            oracle.point_mul(total, G) if total else None)
+
+
 def msm_corpus(M: int, seed: int, zero_sum: bool) -> tuple:
     """An M-term MSM with known discrete logs (Q_j = c_j G): random terms
-    and the crafted corpus — one point four times under one scalar in
-    stream 0 (its buckets meet P == Q), its negation beside it (P == -Q),
-    a zero scalar, n - 1, flagged padding with garbage coordinates, a
-    copy of stream 0 in the last stream (the merge meets P == Q), and
-    with zero_sum one scalar making the sum the point at infinity.
-    Returns numpy (xm, ym, inf8, km) and the affine sum (None: inf)."""
+    and the crafted corpus on the walk's streams (original terms o S ..
+    (o + 1) S - 1 are stream o's |k1| halves and stream o + K/2's |k2|
+    halves, S = 2M / K): one point four times under one scalar at the head
+    of stream 0 (its buckets meet P == -Q, then P == Q), a zero scalar,
+    n - 1, flagged padding with garbage coordinates, a copy of stream 0
+    in stream K/4 (the second merge level meets P == Q), and with K >= 8
+    the negation of stream 1 in stream K/4 + 1 (P == -Q); with zero_sum one
+    scalar (and its copy) makes the sum the point at infinity. Returns
+    numpy (xm, ym, inf8, km) and the affine sum (None: inf)."""
     rng = random.Random(seed)
     K = T.msm_streams(M)
-    steps = M // K
-    logs, scal, flag, rows = [], [], [], []
-    for k in range(K - 1):
-        # stream k: consecutive logs c, c + 1, ... (one affine add a term)
+    S = 2 * M // K
+    logs, flag = [0] * M, [False] * M
+    scal = [rng.randrange(1, N) for _ in range(M)]
+    for o in range(K // 2):
         c = rng.randrange(1, N)
-        pt = oracle.point_mul(c, G)
-        for t in range(steps):
-            logs.append((c + t) % N)
-            rows.append(pt)
-            pt = oracle.point_add(pt, G)
-            scal.append(rng.randrange(1, N))
-            flag.append(t >= steps - (3 if k == 0 else 1))
+        for t in range(S):
+            logs[o * S + t] = (c + t) % N
+            flag[o * S + t] = t >= S - (3 if o == 0 else 1)
     logs[1], logs[2], logs[3] = N - logs[0], logs[0], logs[0]
-    rows[1], rows[2], rows[3] = (rows[0][0], P - rows[0][1]), rows[0], rows[0]
     scal[1] = scal[2] = scal[3] = scal[0]
     scal[4], scal[5] = 0, N - 1
-    # the last stream: a copy of stream 0
-    logs += logs[:steps]
-    scal += scal[:steps]
-    flag += flag[:steps]
-    rows += rows[:steps]
+    copies = {K // 4: (0, 1)}
+    if K >= 8:
+        copies[K // 4 + 1] = (1, -1)
+    for o, (src, sign) in copies.items():
+        for t in range(S):
+            j, i = o * S + t, src * S + t
+            logs[j] = logs[i] if sign > 0 else N - logs[i]
+            scal[j], flag[j] = scal[i], flag[i]
     if zero_sum:
-        last = steps - 4
-        twins = (last, (K - 1) * steps + last)
+        last = S - 4
+        twins = (last, (K // 4) * S + last)
         rest = sum(scal[j] * logs[j] for j in range(M)
                    if not flag[j] and j not in twins) % N
         s = (-rest * pow(2 * logs[last], N - 2, N)) % N
         scal[last] = scal[twins[1]] = s
-    total = sum(scal[j] * logs[j] for j in range(M) if not flag[j]) % N
-    rows = [(rng.getrandbits(256), rng.getrandbits(256)) if flag[j]
-            else rows[j] for j in range(M)]
+    return _terms(logs, scal, flag, rng)
 
-    def mat(vals):
-        return np.frombuffer(b"".join(v.to_bytes(32, "big") for v in vals),
-                             np.uint8).reshape(M, 32).copy()
 
-    return (mat([r[0] for r in rows]), mat([r[1] for r in rows]),
-            np.asarray(flag, np.uint8), mat(scal),
-            oracle.point_mul(total, G) if total else None)
+def msm_tree_corpus(M: int, seed: int) -> tuple:
+    """A sparse crafted MSM (the other terms flagged) whose scalars are
+    below 2^112, so that each |k2| half is 0 and adds nothing: at the head
+    of stream 0 one point four times under one scalar whose windows 4 ..
+    20 are nonzero (the walk meets P == -Q and P == Q); window 22's bucket
+    1 holds U in stream 0 and in stream K/4, window 24's V and -V (the
+    second merge level meets P == Q and P == -Q); window 31's buckets 1
+    and 3 hold Q = -8 R and window 30's buckets 5 and 7 R and -R (the
+    bit sums' first adds meet P == Q and P == -Q); 16 W_30 == W_31 and
+    16 W_28 == -W_29 (the window tree's first level meets P == Q and
+    P == -Q). Returns what msm_corpus returns."""
+    rng = random.Random(seed)
+    K = T.msm_streams(M)
+    S = 2 * M // K
+    logs, scal, flag = [0] * M, [0] * M, [True] * M
+    slots = {0: iter(range(S)), K // 4: iter(range(K // 4 * S, K // 4 * S
+                                                   + S))}
+
+    def put(c, k, stream=0):
+        j = next(slots[stream])
+        logs[j], scal[j], flag[j] = c % N, k, False
+
+    c = rng.randrange(1, N)
+    kw = sum(rng.randrange(1, 16) << (4 * (31 - w)) for w in range(4, 21))
+    for sign in (1, -1, 1, 1):
+        put(sign * c, kw)
+    u, v = rng.randrange(1, N), rng.randrange(1, N)
+    put(u, 1 << 4 * (31 - 22))
+    put(u, 1 << 4 * (31 - 22), stream=K // 4)
+    put(v, 1 << 4 * (31 - 24))
+    put(-v, 1 << 4 * (31 - 24), stream=K // 4)
+    r = rng.randrange(1, N)
+    put(-8 * r, 1)
+    put(-8 * r, 3)
+    put(r, 5 << 4)
+    put(-r, 7 << 4)
+    w = rng.randrange(1, N)
+    put(w, 1 << 12)
+    put(-16 * w, 1 << 8)
+    for k in scal:
+        assert k < 1 << 112 and J.glv_decompose(k)[2] == 0
+    return _terms(logs, scal, flag, rng)
 
 
 @pytest.mark.parametrize("M,zero_sum", [(64, False), (64, True),
                                         (256, False), (256, True)])
-def test_plain_msm_matches_the_oracle_sum(M, zero_sum):
+def test_plain_msm_matches_the_oracle_sum(M, zero_sum, monkeypatch):
+    """msm_corpus through the wrappers (the plain version on the CPU):
+    the oracle's sum and verdict, and the special cases the corpus
+    crafts, counted by the plain version's complete adds."""
+    tally = {}
+    plain = T.msm_accumulate_plain
+    monkeypatch.setattr(T, "msm_accumulate_plain",
+                        lambda *a: plain(*a, tally=tally))
     xm, ym, inf8, km, want = msm_corpus(M, 20 + M, zero_sum)
     assert (want is None) == zero_sum
     (X, Y, Z), inf = T.msm_partial_point(xm, ym, inf8, km)
@@ -256,12 +387,30 @@ def test_plain_msm_matches_the_oracle_sum(M, zero_sum):
         assert verdict.dtype == np.uint32 and verdict.shape == (1,)
         assert int(verdict[0]) == 1
     assert T.LAUNCHES["msm"] == T.LAUNCHES["msm_partial"] == 0
+    assert tally["walk"]["same"] and tally["walk"]["opposite"]
+    assert tally["merge"]["same"]
+    assert bool(tally["merge"]["opposite"]) == (M >= 128)
+
+
+@pytest.mark.parametrize("M", [64, 256])
+def test_plain_msm_meets_every_special_case_in_every_stage(M):
+    """msm_tree_corpus: the plain version's complete adds meet P == Q and
+    P == -Q in the walk, a merge, the bucket reduction and the window
+    tree, and the sum is the oracle's."""
+    xm, ym, inf8, km, want = msm_tree_corpus(M, 40 + M)
+    tally = {}
+    ts = [torch.from_numpy(a) for a in (xm, ym, inf8, km)]
+    (X, Y, Z), inf = T._point_result(T.msm_accumulate_plain(*ts,
+                                                            tally=tally))
+    assert not inf and _affine(X, Y, Z) == want
+    for stage in ("walk", "merge", "reduce", "combine"):
+        assert tally[stage]["same"] and tally[stage]["opposite"], stage
 
 
 def test_msm_wrappers_reject_bad_inputs():
     xm = torch.zeros(65, 32, dtype=torch.uint8)
     inf8 = torch.ones(65, dtype=torch.uint8)
-    with pytest.raises(ValueError):  # 65 terms, 2 streams
+    with pytest.raises(ValueError):  # 130 split terms, 4 streams
         T.schnorr_msm_is_infinity(xm, xm, inf8, xm)
     xm, inf8 = xm[:64], inf8[:64]
     with pytest.raises(ValueError):
