@@ -15,25 +15,25 @@
 //     sha256d over 64-byte rows -> kernel sha256d_pairs_kernel, entry
 //     sha256d_pairs (behind ops/merkle.sha256d_pairs, the certificate
 //     MMR's level hash).
-// And a measuring entry, sha256d_chain: one thread hashing a chain of
-// dependent sha256d_64 steps, whose time gives a hash's latency (the
-// Merkle tree's floor is a chain of them).
+// And two measuring entries: sha256d_chain, one thread hashing a chain
+// of dependent sha256d_64 steps, whose time gives a hash's latency on the
+// same core the kernels run (the Merkle tree's floor is a chain of them);
+// and sha256_round_path, one thread running only the path from e to e'
+// that every round has, whose time a round is a floor of the function.
 //
 // Words are big-endian u32 (SHA-256's own view), rows row-major: a header
 // is 20 words, a digest 8, a pair row 16. Every row starts at a multiple
 // of 16 bytes (the wrappers check the base), so a thread reads and writes
 // its row as 16-byte vectors.
 //
-// The compression. Round constants in __constant__ memory (read at
-// constant indices: an instruction's constant-bank operand); the 16 words
-// of a block in registers as a rolling schedule; all 64 rounds unrolled,
-// so the padding blocks' constant words fold. Its own copy of the rounds:
-// csrc/sha256d_sweep.cu specialises its rounds to the hoisted template.
+// The compression is csrc/sha256_core.cuh's (the fewest ALU
+// instructions a round, constant words folded, one copy of the
+// variable-block compression; its header says why).
 //
-// K1, one thread a header (blocks of 128): block 1, block 2 with the
+// K1, one thread a header (blocks of kThreads): block 1, block 2 with the
 // padding, the second hash; the compare in the same thread. Any B.
 //
-// sha256d_pairs, one thread a row (blocks of 128): 3 compressions.
+// sha256d_pairs, one thread a row (blocks of kThreads): 3 compressions.
 //
 // K2, the tree. The reference reduces the whole tree in one program:
 // per level, pair i hashes nodes 2i and 2i+1; the odd tail pairs with
@@ -45,22 +45,33 @@
 // subtree of up to 2^8 nodes through 8 levels: the first level reads the
 // pairs from global memory, every later level lives in shared memory
 // (ping-pong regions of 128 and 64 nodes, word-major, 6 KB), with one
-// __syncthreads() a level. A launch covers up to 8 levels, the lowest
-// launch first, each over the previous launch's subtree roots (one node
-// a block): a 4,096-leaf bucket is two launches (16 blocks, then one
-// block over their 16 roots), 2^16 leaves two (256 blocks, then one).
-// `mutated` is an atomicOr across blocks and launches; the lowest
-// launch's block 0 writes the witness; the top launch (one block) writes
-// the root.
+// __syncthreads() a level.
 //
-// Why 8 levels a block and not 12. A first design reduced up to 2^12
-// leaves in one block of 1,024 threads (a 4,096-leaf bucket in one
+// One launch up to 2^16 leaves. A tree of up to 8 levels is one block.
+// A tree of 9..16 levels is 2^(levels - L) lower blocks of L levels, L
+// the larger of 8 and levels - 7 (at most 128 blocks: one an SM; 2^16
+// leaves are 128 blocks of 9 levels and 256 threads, where 256 blocks of
+// 8 levels put two on most SMs and halved their speed): each writes its
+// subtree's root and its `mutated` word to the scratch, then takes a
+// ticket (an atomic add with release and acquire order); the block that
+// draws the last ticket reduces the remaining levels over the blocks'
+// roots (read through L2, where the other blocks' writes are) in a
+// second pass of the same loop, ORs the blocks' `mutated` words and
+// writes the root and `mutated`. Block 0 writes the witness. Nothing is
+// zeroed before the launch: every output word is written once, and the
+// ticket counter is zeroed once, by the wrapper that allocates it (one
+// for each stream, so two calls on two streams never share one), and
+// reset by the last block. A deeper tree chains launches of 8 levels a
+// block (each node in the scratch carries the `mutated` word of its
+// subtree) until 16 levels are left.
+//
+// Why 8 levels a block at least, and not 12. A first design reduced up to
+// 2^12 leaves in one block of 1,024 threads (a 4,096-leaf bucket in one
 // launch, as the reference's one dispatch), and took 0.143 ms there on
 // the H100, three times its chain floor: all 4,095 pair hashes of the
-// tree ran on one SM (about 10.8 M ALU-pipe instructions at 64 a clock:
-// 85 us), so the block was bound by its SM's ALU pipe, not by the chain
-// of levels. With 8 levels a block the first level's 2,048 pairs spread
-// over 16 SMs, and the top block starts from 16 nodes.
+// tree ran on one SM, so the block was bound by its SM's ALU pipe, not by
+// the chain of levels. With 8 levels a block the first level's 2,048
+// pairs spread over 16 SMs, and the last block starts from 16 nodes.
 //
 // Live counts. Every thread carries the WHOLE tree's live count m of its
 // level, the same in every block, and tests its pair by its global index
@@ -73,15 +84,14 @@
 // live, is replaced by its left) nor by the root, `mutated` or the
 // witness; pair 0 always runs (with m = 0 it is the witness too).
 //
-// What bounds them on an H100: 32-bit integer operations (rotates as
-// funnel shifts, sigma and Ch / Maj as LOP3 on the ALU pipe; adds as
-// IADD3) — a compression is about 1,000 ALU-pipe instructions — and, at
-// the node's shapes (2,048 headers, a 4,096-leaf tree: a few thousand
-// compressions, under a microsecond of the card's ALU rate), latency: a
-// launch of one wave, and for the tree the chain of its levels (3
-// dependent compressions each) and a launch per 8 levels. chip_smoke.py
-// counts the operations from the rounds and measures the chain with
-// sha256d_chain.
+// What bounds them on an H100: 32-bit integer instructions, and at the
+// node's shapes (2,048 headers, a 4,096-leaf tree: a few thousand
+// compressions, under a microsecond of the card's integer rate) the
+// longest thread's: one warp a scheduler issues its chain of hashes (the
+// tree's levels, 3 dependent compressions each) alone, at about two
+// clocks an ALU instruction. chip_smoke.py counts the instructions from
+// the rounds, measures the chain with sha256d_chain and a round's
+// dependent path with sha256_round_path.
 //
 // Each entry launches on `stream` and returns the cudaError_t of its
 // launch.
@@ -89,104 +99,46 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-typedef uint32_t u32;
-typedef uint64_t u64;
+#include "sha256_core.cuh"
 
 namespace {
 
+using sha256::u32;
+typedef uint64_t u64;
+
 constexpr int kThreads = 128;      // K1 and sha256d_pairs
-constexpr int kTreeLevels = 8;     // levels a tree block reduces at most
-constexpr int kTreePairs = 1 << (kTreeLevels - 1);  // first-level pairs a block
-constexpr int kTreeThreads = kTreePairs;
+constexpr int kTreeLevels = 8;      // levels of a chained launch's block, and the least
+constexpr int kTreeBlocksLog2 = 7;  // at most 2^7 blocks below the last block: one an SM
+constexpr int kTreeThreads = 1 << kTreeLevels;  // 2^16 leaves: 128 blocks of 9 levels
 // shared memory of a tree block: region 0 (the even levels' outputs, S
 // nodes) and region 1 (the odd levels', S / 2 nodes), 8 words a node
 constexpr size_t tree_smem(int S) { return (size_t)(8 * S + 8 * (S / 2)) * sizeof(u32); }
 
-__constant__ u32 c_K[64] = {
-    0x428a2f98u, 0x71374491u, 0xb5c0fbcfu, 0xe9b5dba5u, 0x3956c25bu, 0x59f111f1u,
-    0x923f82a4u, 0xab1c5ed5u, 0xd807aa98u, 0x12835b01u, 0x243185beu, 0x550c7dc3u,
-    0x72be5d74u, 0x80deb1feu, 0x9bdc06a7u, 0xc19bf174u, 0xe49b69c1u, 0xefbe4786u,
-    0x0fc19dc6u, 0x240ca1ccu, 0x2de92c6fu, 0x4a7484aau, 0x5cb0a9dcu, 0x76f988dau,
-    0x983e5152u, 0xa831c66du, 0xb00327c8u, 0xbf597fc7u, 0xc6e00bf3u, 0xd5a79147u,
-    0x06ca6351u, 0x14292967u, 0x27b70a85u, 0x2e1b2138u, 0x4d2c6dfcu, 0x53380d13u,
-    0x650a7354u, 0x766a0abbu, 0x81c2c92eu, 0x92722c85u, 0xa2bfe8a1u, 0xa81a664bu,
-    0xc24b8b70u, 0xc76c51a3u, 0xd192e819u, 0xd6990624u, 0xf40e3585u, 0x106aa070u,
-    0x19a4c116u, 0x1e376c08u, 0x2748774cu, 0x34b0bcb5u, 0x391c0cb3u, 0x4ed8aa4au,
-    0x5b9cca4fu, 0x682e6ff3u, 0x748f82eeu, 0x78a5636fu, 0x84c87814u, 0x8cc70208u,
-    0x90befffau, 0xa4506cebu, 0xbef9a3f7u, 0xc67178f2u};
-// The IV as literals (read at constant indices only, so they fold).
-__device__ __forceinline__ u32 IV(int i) {
-    constexpr u32 v[8] = {0x6a09e667u, 0xbb67ae85u, 0x3c6ef372u, 0xa54ff53au,
-                        0x510e527fu, 0x9b05688cu, 0x1f83d9abu, 0x5be0cd19u};
-    return v[i];
-}
-constexpr u32 kPad = 0x80000000u;
-
-__device__ __forceinline__ u32 rotr(u32 x, int n) { return (x >> n) | (x << (32 - n)); }
-__device__ __forceinline__ u32 bsig0(u32 x) { return rotr(x, 2) ^ rotr(x, 13) ^ rotr(x, 22); }
-__device__ __forceinline__ u32 bsig1(u32 x) { return rotr(x, 6) ^ rotr(x, 11) ^ rotr(x, 25); }
-__device__ __forceinline__ u32 ssig0(u32 x) { return rotr(x, 7) ^ rotr(x, 18) ^ (x >> 3); }
-__device__ __forceinline__ u32 ssig1(u32 x) { return rotr(x, 17) ^ rotr(x, 19) ^ (x >> 10); }
-__device__ __forceinline__ u32 ch(u32 e, u32 f, u32 g) { return g ^ (e & (f ^ g)); }
-__device__ __forceinline__ u32 maj(u32 a, u32 b, u32 c) { return ((b ^ c) & a) ^ (b & c); }
 __device__ __forceinline__ u32 bswap32(u32 x) { return __byte_perm(x, 0, 0x0123); }
-
-// One compression: st = st + rounds(st, w). w is the block's 16 words and
-// becomes the rolling schedule (its values are consumed).
-__device__ __forceinline__ void compress(u32 st[8], u32 w[16]) {
-    u32 a = st[0], b = st[1], c = st[2], d = st[3];
-    u32 e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-        if (i >= 16)
-            w[i & 15] += ssig0(w[(i + 1) & 15]) + w[(i + 9) & 15] + ssig1(w[(i + 14) & 15]);
-        const u32 t1 = h + bsig1(e) + ch(e, f, g) + c_K[i] + w[i & 15];
-        const u32 t2 = bsig0(a) + maj(a, b, c);
-        h = g; g = f; f = e; e = d + t1;
-        d = c; c = b; b = a; a = t1 + t2;
-    }
-    st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-    st[4] += e; st[5] += f; st[6] += g; st[7] += h;
-}
-
-__device__ __forceinline__ void set_iv(u32 st[8]) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) st[i] = IV(i);
-}
-
-// The second hash of a double-SHA: SHA-256 of the 32-byte digest h, one
-// padded block (h || 0x80 || len = 256 bits), into out.
-__device__ __forceinline__ void sha256_of_state(const u32 h[8], u32 out[8]) {
-    u32 w[16];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) w[i] = h[i];
-    w[8] = kPad;
-#pragma unroll
-    for (int i = 9; i < 15; ++i) w[i] = 0;
-    w[15] = 256;
-    set_iv(out);
-    compress(out, w);
-}
-
-// sha256d of a 64-byte message (16 words, consumed): 3 compressions.
-__device__ __forceinline__ void sha256d_64(u32 w[16], u32 out[8]) {
-    u32 st[8];
-    set_iv(st);
-    compress(st, w);
-    u32 p[16];
-    p[0] = kPad;
-#pragma unroll
-    for (int i = 1; i < 15; ++i) p[i] = 0;
-    p[15] = 512;
-    compress(st, p);
-    sha256_of_state(st, out);
-}
 
 __device__ __forceinline__ void load8(const u32* __restrict__ src, u32 v[8]) {
     const uint4 x = reinterpret_cast<const uint4*>(src)[0];
     const uint4 y = reinterpret_cast<const uint4*>(src)[1];
     v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
     v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+}
+
+// the same through L2 (ld.global.cg): nodes other blocks of this launch wrote
+__device__ __forceinline__ void load8_l2(const u32* src, u32 v[8]) {
+    const uint4 x = __ldcg(reinterpret_cast<const uint4*>(src));
+    const uint4 y = __ldcg(reinterpret_cast<const uint4*>(src) + 1);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+}
+
+// A ticket: one more block has written its root and `mutated` word. The
+// add releases this thread's writes and acquires the other blocks' (the
+// block's other threads read them after a __syncthreads()).
+__device__ __forceinline__ u32 take_ticket(u32* tickets) {
+    u32 t;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(t) : "l"(tickets) : "memory");
+    return t;
 }
 
 __device__ __forceinline__ void store8(u32* __restrict__ dst, const u32 v[8]) {
@@ -203,7 +155,7 @@ sha256d_headers_kernel(const u32* __restrict__ words, long long n, const u32* __
     const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
     if (i >= n) return;
     const uint4* row = reinterpret_cast<const uint4*>(words + 20 * i);
-    u32 w[16], st[8], tail[4];
+    u32 w[16], tail[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
         const uint4 x = row[q];
@@ -211,17 +163,8 @@ sha256d_headers_kernel(const u32* __restrict__ words, long long n, const u32* __
     }
     const uint4 x = row[4];
     tail[0] = x.x; tail[1] = x.y; tail[2] = x.z; tail[3] = x.w;
-    set_iv(st);
-    compress(st, w);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) w[q] = tail[q];
-    w[4] = kPad;
-#pragma unroll
-    for (int q = 5; q < 15; ++q) w[q] = 0;
-    w[15] = 640;
-    compress(st, w);
     u32 h[8];
-    sha256_of_state(st, h);
+    sha256::sha256d_80(w, tail, h);
     store8(out + 8 * i, h);
     if constexpr (kPow) {
         // hash <= target as little-endian uint256 limbs (limb 7 most
@@ -245,27 +188,30 @@ sha256d_pairs_kernel(const u32* __restrict__ rows, long long n, u32* __restrict_
     u32 w[16], h[8];
     load8(rows + 16 * i, w);
     load8(rows + 16 * i + 8, w + 8);
-    sha256d_64(w, h);
+    sha256::sha256d_64(w, h);
     store8(out + 8 * i, h);
 }
 
 // ---- K2: the Merkle tree ------------------------------------------------------
 
-// One launch: block b reduces nodes [b << lv, (b + 1) << lv) of this
-// launch's base level through lv levels into dst[b] (8 words). m0 is the
-// whole tree's live count at the base level; `bottom` marks the tree's
-// first level (the witness); flags[0] is `mutated`, flags[1..8] the
-// witness.
-__global__ void __launch_bounds__(kTreeThreads)
-merkle_tree_kernel(const u32* __restrict__ src, u32* __restrict__ dst, int lv, u64 m0,
-                   int bottom, u32* __restrict__ flags) {
-    extern __shared__ u32 sm[];
-    const int S = 1 << (lv - 1);  // this launch's first-level pairs a block
+struct Subtree {
+    bool mutated;     // the block's: the same in every thread
+    const u32* root;  // node 0 of the top level's region, word w at root[w * stride]
+    int stride;
+};
+
+// Reduces, in one block, nodes [b << lv, (b + 1) << lv) of a level held
+// in global memory (src, 8 words a node, read through L2: the last
+// block's nodes are other blocks' writes of this launch) through lv
+// levels; m is the whole tree's live count at that level. witness, when
+// not null, takes the hash of pair 0 of the tree's first level (block 0
+// of the first launch passes it).
+__device__ __forceinline__ Subtree reduce_subtree(const u32* src, u64 b, int lv, u64 m,
+                                                  u32* __restrict__ witness, u32* sm) {
+    const int S = 1 << (lv - 1);  // first-level pairs
     // level j writes region j & 1: region 0 (S nodes) at sm, region 1
     // (S / 2 nodes) after it; node k's word w at region[w * stride + k]
     u32* const r1 = sm + 8 * S;
-    const u64 b = blockIdx.x;
-    u64 m = m0;
     bool mut = false;
     for (int j = 0; j < lv; ++j) {
         const int P = S >> j;  // pairs at this level in the block
@@ -281,8 +227,8 @@ merkle_tree_kernel(const u32* __restrict__ src, u32* __restrict__ dst, int lv, u
             const bool live = 2 * gi + 1 < m;        // both nodes in the live prefix
             u32 w[16];
             if (j == 0) {
-                load8(src + 16 * gi, w);
-                if (live) load8(src + 16 * gi + 8, w + 8);
+                load8_l2(src + 16 * gi, w);
+                if (live) load8_l2(src + 16 * gi + 8, w + 8);
             } else {
 #pragma unroll
                 for (int k = 0; k < 8; ++k) w[k] = in[k * in_stride + 2 * i];
@@ -300,17 +246,17 @@ merkle_tree_kernel(const u32* __restrict__ src, u32* __restrict__ dst, int lv, u
 #pragma unroll
                 for (int k = 0; k < 8; ++k) w[8 + k] = w[k];  // the odd tail's self-pair
             }
-            const bool witness = bottom && j == 0 && gi == 0;
+            const bool wit = witness != nullptr && j == 0 && gi == 0;
             if (done) {
 #pragma unroll
                 for (int k = 0; k < 8; ++k) out[k * out_stride + i] = w[k];
             }
-            if (!done || witness) {
+            if (!done || wit) {
                 u32 h[8];
-                sha256d_64(w, h);
-                if (witness) {
+                sha256::sha256d_64(w, h);
+                if (wit) {
 #pragma unroll
-                    for (int k = 0; k < 8; ++k) flags[1 + k] = h[k];
+                    for (int k = 0; k < 8; ++k) witness[k] = h[k];
                 }
                 if (!done) {
 #pragma unroll
@@ -321,32 +267,114 @@ merkle_tree_kernel(const u32* __restrict__ src, u32* __restrict__ dst, int lv, u
         __syncthreads();
         if (!done) m = (m + 1) / 2;
     }
-    if (mut) atomicOr(flags, 1u);
-    if (threadIdx.x == 0) {
-        const bool odd = (lv - 1) & 1;
-        const u32* top = odd ? r1 : sm;
-        const int top_stride = odd ? S / 2 : S;
+    const bool odd = (lv - 1) & 1;
+    return {__syncthreads_or(mut) != 0, odd ? r1 : sm, odd ? S / 2 : S};
+}
+
+// One launch: block b reduces nodes [b << lv, (b + 1) << lv) of src (the
+// leaves, or the last launch's roots with their `mutated` words src_mut)
+// through lv levels; m is the whole tree's live count at src's level.
+//   - top < 0: a chained launch; the block writes its root to dst[b] and
+//     its `mutated` word to dst_mut[b].
+//   - top == 0: the last launch, one block; it writes out.
+//   - top > 0: the last launch; the block writes dst[b], dst_mut[b] and
+//     takes a ticket; the block that draws the last reduces the top `top`
+//     levels over dst (a second pass of the same loop, so the kernel
+//     holds one copy of the hash), writes out and resets the counter.
+// out: the root (8 words), mutated (1), the witness (8); the first launch
+// (bottom) writes the witness.
+__global__ void __launch_bounds__(kTreeThreads)
+merkle_tree_kernel(const u32* src, const u32* __restrict__ src_mut, int lv, u64 m, int top,
+                   int bottom, u32* dst, u32* dst_mut, u32* __restrict__ tickets,
+                   u32* __restrict__ out) {
+    extern __shared__ u32 sm[];
+    __shared__ bool last;
+    u64 b = blockIdx.x;
+    u32* witness = bottom && b == 0 ? out + 9 : nullptr;
+    bool below = false;  // the subtrees below this launch's inputs
+    if (src_mut != nullptr) {
+        for (int k = threadIdx.x; k < (1 << lv); k += blockDim.x)
+            below = below || src_mut[(b << lv) + k] != 0;
+    }
+#pragma unroll 1
+    for (;;) {
+        const Subtree t = reduce_subtree(src, b, lv, m, witness, sm);
+        const bool mut = __syncthreads_or(below) != 0 || t.mutated;
+        if (top == 0) {
+            if (threadIdx.x == 0) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) dst[8 * b + k] = top[k * top_stride];
+                for (int k = 0; k < 8; ++k) out[k] = t.root[k * t.stride];
+                out[8] = mut;
+            }
+            return;
+        }
+        if (threadIdx.x == 0) {
+#pragma unroll
+            for (int k = 0; k < 8; ++k) dst[8 * b + k] = t.root[k * t.stride];
+            dst_mut[b] = mut;
+            if (top > 0) last = take_ticket(tickets) == gridDim.x - 1;
+        }
+        if (top < 0) return;
+        __syncthreads();
+        if (!last) return;
+        // the last block: the top levels over every block's root
+        for (int k = 0; k < lv; ++k) m = m <= 1 ? m : (m + 1) / 2;
+        below = false;
+        for (int k = threadIdx.x; k < (int)gridDim.x; k += blockDim.x)
+            below = below || __ldcg(dst_mut + k) != 0;
+        if (threadIdx.x == 0) *tickets = 0;
+        src = dst;
+        b = 0;
+        lv = top;
+        top = 0;
+        witness = nullptr;
     }
 }
 
 // ---- sha256d_chain: a hash's latency ------------------------------------------
 
+// (one thread; its words are read at threadIdx.x, so that they live in
+// the per-thread registers the kernels' words do, not in the uniform
+// datapath a warp-uniform value would take)
 __global__ void sha256d_chain_kernel(const u32* __restrict__ seed, int steps,
                                      u32* __restrict__ out) {
     u32 x[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) x[k] = seed[k];
+    for (int k = 0; k < 8; ++k) x[k] = seed[8 * threadIdx.x + k];
 #pragma unroll 1
     for (int s = 0; s < steps; ++s) {
         u32 w[16];
 #pragma unroll
         for (int k = 0; k < 8; ++k) w[k] = w[8 + k] = x[k];
-        sha256d_64(w, x);
+        sha256::sha256d_64(w, x);
     }
 #pragma unroll
-    for (int k = 0; k < 8; ++k) out[k] = x[k];
+    for (int k = 0; k < 8; ++k) out[8 * threadIdx.x + k] = x[k];
+}
+
+// ---- sha256_round_path: the round's dependent path alone --------------------
+
+// (one thread: `steps` times 64 rounds of e' = K[i] + S1(e) + Ch(e, f, g),
+// then g, f = f, e: the e -> e' path of a round, d + h + W[i] being known
+// rounds ahead, and the rest of the round dropped. No design of one hash
+// a thread computes a round faster. The seed is read at threadIdx.x, as
+// in sha256d_chain.)
+__global__ void sha256_round_path_kernel(const u32* __restrict__ seed, int steps,
+                                         u32* __restrict__ out) {
+    u32 e = seed[3 * threadIdx.x], f = seed[3 * threadIdx.x + 1], g = seed[3 * threadIdx.x + 2];
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+            const u32 x = sha256::K(i) + sha256::bsig1(e) + sha256::ch(e, f, g);
+            g = f;
+            f = e;
+            e = x;
+        }
+    }
+    out[3 * threadIdx.x] = e;
+    out[3 * threadIdx.x + 1] = f;
+    out[3 * threadIdx.x + 2] = g;
 }
 
 unsigned grid(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -378,42 +406,59 @@ extern "C" int sha256d_pairs(const u32* rows, long long n, u32* out, void* strea
 }
 
 // leaves: (2^n_levels, 8) u32; m: the live count; scratch: two buffers
-// of scratch_nodes nodes each (at least 2^(n_levels - 8) nodes when
-// n_levels > 8); out: 17 words — the root (8), mutated (1), the witness
-// (8).
+// of scratch_nodes nodes, 9 words a node (8 words each, then a mutated
+// word each), at least 2^(n_levels - 8) nodes when n_levels > 8;
+// tickets: one u32, zero, that this call leaves zero (needed when
+// n_levels > 8; never shared with a call on another stream); out: 17
+// words — the root (8), mutated (1), the witness (8). Up to 16 levels
+// one launch; above, one more launch for each 8 levels.
 extern "C" int merkle_tree(const u32* leaves, int n_levels, u64 m, u32* scratch,
-                           long long scratch_nodes, u32* out, void* stream) {
+                           long long scratch_nodes, u32* tickets, u32* out, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (n_levels < 1 || n_levels > 40) return (int)cudaErrorInvalidValue;
     if (n_levels > kTreeLevels &&
-        (scratch == nullptr || scratch_nodes < (1ll << (n_levels - kTreeLevels))))
+        (scratch == nullptr || tickets == nullptr ||
+         scratch_nodes < (1ll << (n_levels - kTreeLevels))))
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaMemsetAsync(out, 0, 17 * sizeof(u32), s);
-    if (e != cudaSuccess) return (int)e;
     const u32* src = leaves;
-    int left = n_levels, ping = 0, bottom = 1;
-    while (left > 0) {
-        const int lv = left < kTreeLevels ? left : kTreeLevels;
+    const u32* src_mut = nullptr;
+    int left = n_levels, ping = 0;
+    for (;;) {
+        int lv = kTreeLevels, top = -1;  // a chained launch
+        if (left <= kTreeLevels) {
+            lv = left;  // one block
+            top = 0;
+        } else if (left <= 2 * kTreeLevels) {
+            if (left - kTreeBlocksLog2 > lv) lv = left - kTreeBlocksLog2;
+            top = left - lv;
+        }
         const unsigned blocks = (unsigned)(1ull << (left - lv));
-        u32* dst = left == lv ? out : scratch + (long long)ping * scratch_nodes * 8;
+        u32* dst = scratch == nullptr ? nullptr : scratch + (long long)ping * scratch_nodes * 9;
+        u32* dst_mut = dst == nullptr ? nullptr : dst + scratch_nodes * 8;
         const int S = 1 << (lv - 1);
         const int threads = S < kTreeThreads ? S : kTreeThreads;
-        merkle_tree_kernel<<<blocks, threads, tree_smem(S), s>>>(src, dst, lv, m, bottom,
-                                                                 out + 8);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
+        merkle_tree_kernel<<<blocks, threads, tree_smem(S), s>>>(
+            src, src_mut, lv, m, top, src == leaves, dst, dst_mut, tickets, out);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess || top >= 0) return (int)e;
         for (int k = 0; k < lv; ++k) m = m <= 1 ? m : (m + 1) / 2;  // as each block does
         src = dst;
+        src_mut = dst_mut;
         ping ^= 1;
         left -= lv;
-        bottom = 0;
     }
-    return 0;
 }
 
 // One thread: x = seed; `steps` times x = sha256d(x || x); out = x.
 extern "C" int sha256d_chain(const u32* seed, int steps, u32* out, void* stream) {
     sha256d_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(seed, steps, out);
+    return (int)cudaGetLastError();
+}
+
+// One thread: (e, f, g) = seed; `steps` times 64 rounds of the e path;
+// out = (e, f, g).
+extern "C" int sha256_round_path(const u32* seed, int steps, u32* out, void* stream) {
+    sha256_round_path_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(seed, steps, out);
     return (int)cudaGetLastError();
 }
 

@@ -17,8 +17,9 @@ pair), which CheckBlock's duplicate-tx rule reads.
 
 - **The kernels** (``csrc/sha256d_batch.cu``, CUDA C++ for sm_90a, built
   and bound by ops/cuda_build.py): ``merkle_tree`` replaces the XLA program
-  ``_tree_reduce_jit`` (the whole tree: a block reduces 8 levels of a
-  subtree in shared memory, one launch per 8 levels), and
+  ``_tree_reduce_jit`` (the whole tree: a block reduces 8 or more levels
+  of a subtree in shared memory, and the block that finishes last the
+  levels above them, one launch up to 2^16 leaves), and
   ``hash_pairs_words`` replaces ``_hash_pairs_jit`` (one flat level, the
   certificate MMR's). Each takes its plain version only for a tensor on
   the CPU; for a CUDA tensor it launches the kernel or raises
@@ -43,19 +44,25 @@ from .cuda_build import KernelUnavailable, require_device
 from .sha256 import check_words, sha256d_64, words32, words64
 
 PAD_LANES = 128  # the bucket floor: keeps distinct launch shapes ~O(log n)
-TREE_LEVELS = 8  # levels one launch of the tree kernel reduces at most
+# The tree kernel's launch plan (csrc/sha256d_batch.cu's merkle_tree):
+# up to 2 * TREE_LEVELS levels one launch, in which at most
+# 2**TREE_BLOCKS_LOG2 blocks of at least TREE_LEVELS levels each (one an
+# SM) reduce the lower levels and the last of them the levels above; a
+# deeper tree first chains launches of TREE_LEVELS levels a block.
+TREE_LEVELS = 8
+TREE_BLOCKS_LOG2 = 7
+TREE_WORDS = 17  # the tree's output: the root (8), mutated (1), the witness (8)
 
 # Launches per wrapper: each adds one where it launches its kernel, and
-# nowhere else (the plain version does not count). A tree of more than
-# TREE_LEVELS levels is one call of the C entry, counted once, that
-# launches the kernel once per TREE_LEVELS levels.
+# nowhere else (the plain version does not count). A call of the C entry
+# is counted once, whatever its kernel launches.
 LAUNCHES = {"merkle_tree": 0, "sha256d_pairs": 0}
 
 _VP, _I32, _I64, _U64 = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
                          ctypes.c_uint64)
 ENTRY_ARGS = {
-    # (leaves, n_levels, m, scratch, scratch_nodes, out, stream)
-    "merkle_tree": [_VP, _I32, _U64, _VP, _I64, _VP, _VP],
+    # (leaves, n_levels, m, scratch, scratch_nodes, tickets, out, stream)
+    "merkle_tree": [_VP, _I32, _U64, _VP, _I64, _VP, _VP, _VP],
     # (rows, n, out, stream)
     "sha256d_pairs": [_VP, _I64, _VP, _VP],
 }
@@ -133,11 +140,28 @@ def _launch(name: str, dev: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def merkle_tree(words: torch.Tensor, n_levels: int, m: int):
+# The tree kernel's ticket counters, one for each (device, stream): zeroed
+# here once, left zero by every call (the block that draws the last
+# ticket resets it), so calls on one stream, which run in order, share
+# one, and calls on two streams never do.
+_TICKETS: dict = {}
+
+
+def _tickets(dev: torch.device) -> torch.Tensor:
+    stream = torch.cuda.current_stream(dev)
+    key = (stream.device_index, stream.cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
+def merkle_tree_words(words: torch.Tensor, n_levels: int,
+                      m: int) -> torch.Tensor:
     """The whole tree over (2**n_levels, 8) int32 leaf words with ``m``
-    live, on words' device — K2's contract (the reference's
-    _tree_reduce_jit): (root (8,) int32, mutated 0-d bool, witness (8,)
-    int32, the hash of level-1 pair 0)."""
+    live, on words' device, as the kernel writes it: (TREE_WORDS,) int32,
+    the root (8 words), mutated (1: 0 or 1) and the witness (8: the hash
+    of level-1 pair 0), so that a caller reads all three in one copy."""
     check_words(words, 8, "leaf words")
     if n_levels < 1 or words.shape[0] != 1 << n_levels:
         raise ValueError(f"{words.shape[0]} leaves is not a bucket of "
@@ -146,15 +170,25 @@ def merkle_tree(words: torch.Tensor, n_levels: int, m: int):
         raise ValueError(f"live count {m} is not a u32")
     dev = words.device
     if dev.type == "cpu":
-        return tree_reduce_plain(words, n_levels, m)
+        root, mutated, witness = tree_reduce_plain(words, n_levels, m)
+        return torch.cat([root, mutated.to(torch.int32).reshape(1), witness])
     if dev.type != "cuda":
         raise KernelUnavailable(f"no Merkle kernel for device {dev}")
     scratch_nodes = 1 << max(0, n_levels - TREE_LEVELS)
-    scratch = torch.empty((2 * scratch_nodes, 8), dtype=torch.int32,
+    scratch = torch.empty(2 * scratch_nodes * 9, dtype=torch.int32,
                           device=dev)
-    out = torch.empty(17, dtype=torch.int32, device=dev)
+    out = torch.empty(TREE_WORDS, dtype=torch.int32, device=dev)
     _launch("merkle_tree", dev, words.data_ptr(), n_levels, m,
-            scratch.data_ptr(), scratch_nodes, out.data_ptr())
+            scratch.data_ptr(), scratch_nodes, _tickets(dev).data_ptr(),
+            out.data_ptr())
+    return out
+
+
+def merkle_tree(words: torch.Tensor, n_levels: int, m: int):
+    """K2's contract (the reference's _tree_reduce_jit) over
+    ``merkle_tree_words``: (root (8,) int32, mutated 0-d bool, witness (8,)
+    int32, the hash of level-1 pair 0)."""
+    out = merkle_tree_words(words, n_levels, m)
     return out[:8], out[8] != 0, out[9:]
 
 
@@ -271,13 +305,12 @@ def compute_merkle_root_tpu_ex(hashes: list[bytes]) -> tuple:
         # launching per-tx-count shapes fires the sentinel
         dw.note_transfer("merkle", "h2d", int(words.nbytes))
         with dw.program("merkle_tree", shape_budget=24).dispatch(bucket):
-            root_w, mutated, witness = merkle_tree(
-                _to_device(words, dev), bucket.bit_length() - 1, n)
-            root, wit = _to_host(root_w), _to_host(witness)
-        dw.note_transfer("merkle", "d2h",
-                         int(root.nbytes) + int(wit.nbytes))
-        return (_words_to_digests(root[None, :])[0].tobytes(), bool(mutated),
-                _words_to_digests(wit[None, :])[0].tobytes())
+            # one device-to-host copy of the 17 words, split on the host
+            out = _to_host(merkle_tree_words(
+                _to_device(words, dev), bucket.bit_length() - 1, n))
+        dw.note_transfer("merkle", "d2h", int(out.nbytes))
+        return (_words_to_digests(out[None, :8])[0].tobytes(), bool(out[8]),
+                _words_to_digests(out[None, 9:])[0].tobytes())
 
     def validate(res) -> bool:
         _root, _mut, witness = res

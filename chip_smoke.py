@@ -93,18 +93,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              2^20 x 4096 from nonce 0), against the plain version with its
              first candidate between 2^26 and 2^28, both timed on it; and
              that launch timed with no hit (no plain time: minutes).
-3b. batch  — the batch SHA-256d kernels of csrc/sha256d_batch.cu: one
-             dependent sha256d_64's latency (entry sha256d_chain, equal to
-             hashlib's chain); sha256d_headers and check_headers_pow at
-             B = 16, 17, 2048 and 16384 (lane 0 the mainnet genesis
-             header; targets at and just below a digest, and difficulty
-             1); merkle_tree at buckets 128 to 2^16 with m the bucket, odd,
-             bucket / 2 + 1, a duplicated tail (mutated), equal pairs past
-             m (not mutated) and 2; sha256d_pairs at 128, 512, 1000 and
-             2^16 rows — each exactly equal to its plain version on the
-             card and to the host oracles (hashlib, the compare,
-             compute_merkle_root, merkle_root_naive); kernel and plain
-             times, bound and chain floor.
+3b. batch  — the batch SHA-256d kernels of csrc/sha256d_batch.cu (on
+             csrc/sha256_core.cuh): one dependent sha256d_64's latency
+             (entry sha256d_chain, equal to hashlib's chain) and one
+             round's dependent path (entry sha256_round_path, equal to a
+             Python model); sha256d_headers and check_headers_pow at
+             B = 16, 17, 2048 and 16384 (lane 0 the mainnet genesis header;
+             targets at and just below a digest, and difficulty 1);
+             merkle_tree at buckets 128 to 2^16 (one launch each) with m
+             the bucket, odd, bucket / 2 + 1, a duplicated tail (mutated),
+             equal pairs past m (not mutated) and 2, and at 2^17 (two
+             chained launches) with m the bucket, the duplicated tail and
+             equal pairs past m; sha256d_pairs at 128, 512, 1000 and 2^16
+             rows — each exactly equal to its plain version on the card
+             and to the host oracles (hashlib, the compare,
+             compute_merkle_root, merkle_root_naive), the tree's ticket
+             counters left at 0; kernel and plain times (the tree's also
+             with its ticket counter zeroed before each call, and through
+             compute_merkle_root_tpu_ex), the bound (the largest of the
+             operations over the card, the bytes, and the longest thread's
+             rounds x one round's dependent path), this design's issue
+             floor (the longest thread's instructions at one a clock) and
+             the chain floor.
 4. genesis — a known answer: the mainnet genesis header at target
              0x1d00ffff, a 2^28-nonce window ending at its nonce, swept by
              each entry's host loop: the same nonce, host-verified.
@@ -1273,7 +1283,8 @@ GLV_KERNELS = ("glv_dev_verify_kernel", "glv_verify_kernel",
                "glv_decompose_kernel", "glv_field_chain_kernel") \
     + GLV_PAIR_KERNELS
 BATCH_KERNELS = ("sha256d_headers_kernel", "sha256d_pairs_kernel",
-                 "merkle_tree_kernel", "sha256d_chain_kernel")
+                 "merkle_tree_kernel", "sha256d_chain_kernel",
+                 "sha256_round_path_kernel")
 MSM_KERNELS = ("msm_split_kernel", "msm_buckets_kernel", "msm_merge_kernel",
                "msm_reduce_kernel", "msm_combine_kernel")
 LADDER_KERNELS = ("ladder_verify_kernel",)
@@ -1781,7 +1792,8 @@ def batch_ops() -> dict:
                                ("pair", pair, 0)):
         alu = sum(a for a, _ in parts) + extra
         adds = sum(b for _, b in parts)
-        out[name] = {"alu": alu, "adds": adds, "total": alu + adds}
+        out[name] = {"alu": alu, "adds": adds, "total": alu + adds,
+                     "compressions": [a + b for a, b in parts]}
     return out
 
 
@@ -1793,6 +1805,61 @@ def bound(alu: int, nbytes: int, clock_hz: float) -> dict:
     o, b = ops_ms(alu, clock_hz), nbytes / HBM_BYTES_S * 1e3
     return {"bound_ms": max(o, b), "bound_by": "operations" if o >= b
             else "bytes"}
+
+
+def batch_bound(alu: int, nbytes: int, rounds: int, issue_instr: int,
+                round_ms: float, clock_hz: float) -> dict:
+    """bound() with a third term for the batch kernels, the dependent
+    path: the longest thread's chain of rounds (a thread's hash, or the
+    tree's dependent hashes, 192 rounds each) x one round's e -> e' path
+    as sha256_round_path measures it alone. The largest of the three;
+    bound_of says which set it. Beside it and not in it, this design's
+    issue floor: the longest thread's instructions at one a clock (a floor
+    of one thread a hash, not of the function)."""
+    card = bound(alu, nbytes, clock_hz)
+    path_ms = rounds * round_ms
+    extra = {"card_bound_ms": card["bound_ms"], "path_bound_ms": path_ms,
+             "issue_floor_ms": issue_instr / clock_hz * 1e3}
+    if path_ms >= card["bound_ms"]:
+        return {"bound_ms": path_ms, "bound_by": "operations",
+                "bound_of": "dependent path", **extra}
+    return {**card, "bound_of": "card", **extra}
+
+
+def round_path(clock_hz: float, seed: int = 14) -> dict:
+    """The dependent path of one SHA-256 round on the card: the entry
+    sha256_round_path (one thread, 64 rounds a step of e' = K[i] + S1(e)
+    + Ch(e, f, g)) timed at two step counts, the difference over the
+    rounds between them; its result equal to a Python model's."""
+    import ctypes
+
+    import torch
+
+    from bitcoincashplus_tpu_torch.crypto.hashes import SHA256_K
+
+    def rotr(x, n):
+        return ((x >> n) | (x << (32 - n))) & 0xFFFFFFFF
+
+    vp = ctypes.c_void_p
+    rng = random.Random(seed)
+    efg = [rng.getrandbits(32) for _ in range(3)]
+    x = _u32_tensor(efg, "cuda")
+    out = torch.empty(3, dtype=torch.int32, device="cuda")
+    steps = (1024, 3072)
+    times = {n: time_cuda(entry_call(
+        "sha256_round_path", [vp, ctypes.c_int, vp, vp], x.data_ptr(), n,
+        out.data_ptr()), 5) for n in steps}
+    e, f, g = efg
+    for _ in range(steps[1]):
+        for k in SHA256_K:
+            s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)
+            e, f, g = (k + s1 + (g ^ (e & (f ^ g)))) & 0xFFFFFFFF, e, f
+    if [int(w) & 0xFFFFFFFF for w in out.cpu()] != [e, f, g]:
+        raise AssertionError("sha256_round_path differs from its model")
+    round_ms = (times[steps[1]] - times[steps[0]]) / (
+        64 * (steps[1] - steps[0]))
+    return {"round_ms": round_ms, "cycles_a_round": round_ms * 1e-3 *
+            clock_hz, "times_ms": times}
 
 
 def hash_chain(clock_hz: float, seed: int = 13) -> dict:
@@ -1834,7 +1901,7 @@ def _u32_tensor(a, dev):
 
 
 def header_case(B: int, seed: int, clock_hz: float, ops: dict,
-                step_ms: float, reps: int = 50) -> dict:
+                step_ms: float, round_ms: float, reps: int = 50) -> dict:
     """sha256d_headers and check_headers_pow at B seeded headers (lane 0
     the mainnet genesis header) against their plain versions on the card,
     exactly equal; the digests against hashlib and the verdicts against
@@ -1893,62 +1960,89 @@ def header_case(B: int, seed: int, clock_hz: float, ops: dict,
     return {"B": B, "ms": ms, "plain_ms": plain_ms, "pow_ms": pow_ms,
             "pow_plain_ms": pow_plain_ms, "wrapper_ms": wrapper_ms,
             "max_abs_err": 0,
-            **bound(B * ops["header"]["alu"], B * (80 + 32), clock_hz),
-            "pow_bound": bound(B * ops["pow"]["alu"], B * (80 + 32 + 1) + 32,
-                               clock_hz),
+            **batch_bound(B * ops["header"]["alu"], B * (80 + 32), 192,
+                          ops["header"]["total"], round_ms, clock_hz),
+            "pow_bound": batch_bound(B * ops["pow"]["alu"],
+                                     B * (80 + 32 + 1) + 32, 192,
+                                     ops["pow"]["total"], round_ms,
+                                     clock_hz),
             "chain_floor_ms": step_ms}
 
 
 def tree_plan(n_levels: int) -> list:
-    """The merkle_tree entry's launches: (levels, blocks, threads) each,
-    TREE_LEVELS levels a launch from the leaves up."""
-    from bitcoincashplus_tpu_torch.ops.merkle import TREE_LEVELS
+    """The merkle_tree entry's launches, (levels a block, blocks, threads,
+    top) each, from the leaves up: top -1 for a chained launch of
+    TREE_LEVELS levels a block (trees above 2 * TREE_LEVELS levels), 0 for
+    a one-block launch, else the levels the block that draws the last
+    ticket reduces above the others (at most 2^TREE_BLOCKS_LOG2 blocks, of
+    at least TREE_LEVELS levels) in the same launch."""
+    from bitcoincashplus_tpu_torch.ops.merkle import (TREE_BLOCKS_LOG2,
+                                                      TREE_LEVELS)
 
     plan, left = [], n_levels
-    while left > 0:
-        lv = min(TREE_LEVELS, left)
-        plan.append((lv, 1 << (left - lv), 1 << (lv - 1)))
+    while True:
+        if left <= TREE_LEVELS:
+            lv, top = left, 0
+        elif left <= 2 * TREE_LEVELS:
+            lv = max(TREE_LEVELS, left - TREE_BLOCKS_LOG2)
+            top = left - lv
+        else:
+            lv, top = TREE_LEVELS, -1
+        plan.append((lv, 1 << (left - lv), 1 << (lv - 1), top))
+        if top >= 0:
+            return plan
         left -= lv
-    return plan
 
 
 def tree_work(bucket: int, m: int) -> tuple:
     """(pair hashes, dependent hash steps) a tree of ``m`` live leaves
     needs in the kernel: the live pairs of each level (pair 0 at least,
     the witness), and the longest chain of sha256d_64 one thread computes
-    (a level's pairs over the launch's threads, for the levels with m > 1;
-    the first level's pair 0 when m <= 1)."""
+    (a level's pairs over the block's threads, for the levels with m > 1,
+    the last block's top levels included; the first level's pair 0 when
+    m <= 1)."""
     pairs = steps = 0
     mm = m
-    for lv, _blocks, threads in tree_plan(bucket.bit_length() - 1):
+    for lv, _blocks, threads, top in tree_plan(bucket.bit_length() - 1):
         S = 1 << (lv - 1)
-        for j in range(lv):
+        widths = [S >> j for j in range(lv)] + \
+            [(1 << (top - 1)) >> j for j in range(max(top, 0))]
+        for width in widths:
             if mm > 1:
                 pairs += (mm + 1) // 2
-                steps += -(-(S >> j) // threads)
+                steps += -(-width // threads)
                 mm = (mm + 1) // 2
             elif pairs == 0:
                 pairs = steps = 1
     return pairs, steps
 
 
-TREE_BUCKETS = (128, 512, 1024, 4096, 8192, 1 << 16)
+TREE_BUCKETS = (128, 512, 1024, 4096, 8192, 1 << 16, 1 << 17)
 HEADER_SHAPES = (16, 17, 2048, 16384)
 PAIR_SHAPES = (128, 512, 1000, 1 << 16)
 
 
 def tree_case(bucket: int, seed: int, clock_hz: float, ops: dict,
-              step_ms: float, reps: int = 50) -> dict:
+              step_ms: float, round_ms: float, reps: int = 50) -> dict:
     """merkle_tree at one bucket, against its plain version on the card
     (root, mutated and witness exactly equal) and the host oracles
     (compute_merkle_root and merkle_root_naive on the live leaves; the
     witness sha256d(h0 || h1)), at live counts: the bucket (pow2), an odd
     count, bucket / 2 + 1, a duplicated tail (mutated), equal pairs past m
-    (not mutated), and 2. Times at m = bucket (the most work): the
-    kernel's device time (time_device, the C entry called directly), the
-    wrapper's time a call, the plain time, the bound of the live pairs,
-    and the chain floor (the longest thread's dependent hashes x one
-    hash's measured latency)."""
+    (not mutated), and 2; above 2^16 leaves (chained launches: each
+    lower launch's roots carry their subtrees' `mutated` words up) the
+    bucket, the duplicated tail and the equal pairs only. The wrapper's
+    ticket counter is 0 after every case. Times at m = bucket: the
+    kernel's device time (time_device, the C entry called directly; the
+    same with the ticket counter zeroed before each call, the choice the
+    kernel's self-reset avoids), the wrapper's time a call (merkle_tree)
+    and the host API's (compute_merkle_root_tpu_ex: the leaves' copy in,
+    the launch, the one copy out and the host's witness check), the plain
+    time, the bound (the live pairs over the card, or the longest
+    thread's dependent hashes x 192 rounds x one round's measured
+    dependent path), this design's issue floor (those hashes' instructions
+    at one a clock), and the chain floor (those hashes x one hash's
+    measured latency)."""
     import hashlib
 
     import numpy as np
@@ -1959,11 +2053,17 @@ def tree_case(bucket: int, seed: int, clock_hz: float, ops: dict,
 
     dev = torch.device("cuda")
     n_levels = bucket.bit_length() - 1
+    plan = tree_plan(n_levels)
+    if (len(plan) == 1) != (bucket <= 1 << 16) or any(
+            top != -1 for *_, top in plan[:-1]):
+        raise AssertionError(f"merkle_tree {bucket}: launch plan {plan}")
     rng = np.random.default_rng(seed)
     base = rng.integers(0, 256, (bucket, 32), dtype=np.uint8)
     odd = bucket * 3 // 4 + 1
     cases = {"pow2": bucket, "odd": odd, "pow2+1": bucket // 2 + 1,
              "dup_tail": odd + 1, "equal_past_m": odd, "m=2": 2}
+    if bucket > 1 << 16:
+        cases = {k: cases[k] for k in ("pow2", "dup_tail", "equal_past_m")}
     rows = {}
     for label, m in cases.items():
         leaves = base.copy()
@@ -1992,34 +2092,50 @@ def tree_case(bucket: int, seed: int, clock_hz: float, ops: dict,
         if bool(k[1]) != (label == "dup_tail"):
             raise AssertionError(f"merkle_tree {bucket} {label}: mutated "
                                  f"{bool(k[1])}")
+        if int(MK._tickets(dev).item()) != 0:
+            raise AssertionError(f"merkle_tree {bucket} {label}: the "
+                                 f"ticket counter was left nonzero")
         rows[label] = {"m": m, "mutated": bool(k[1])}
         if label == "pow2":
             nodes = 1 << max(0, n_levels - MK.TREE_LEVELS)
-            scratch = torch.empty((2 * nodes, 8), dtype=torch.int32,
+            scratch = torch.empty(2 * nodes * 9, dtype=torch.int32,
                                   device=dev)
-            out = torch.empty(17, dtype=torch.int32, device=dev)
-            ms = time_device(entry_call(
+            tickets = torch.zeros(1, dtype=torch.int32, device=dev)
+            out = torch.empty(MK.TREE_WORDS, dtype=torch.int32, device=dev)
+            call = entry_call(
                 "merkle_tree", MK.ENTRY_ARGS["merkle_tree"],
                 words.data_ptr(), n_levels, m, scratch.data_ptr(), nodes,
-                out.data_ptr()), clock_hz, reps)
-            if not torch.equal(out[:8], k[0]):
+                tickets.data_ptr(), out.data_ptr())
+            ms = time_device(call, clock_hz, reps)
+            if not torch.equal(out[:8], k[0]) or int(tickets.item()) != 0:
                 raise AssertionError(f"merkle_tree {bucket}: the timed "
-                                     f"launches' root differs")
+                                     f"launches' root differs or their "
+                                     f"ticket counter was left nonzero")
+
+            def zeroed():  # the counter zeroed before every call instead
+                tickets.zero_()
+                call()
+            zeroed_ms = time_device(zeroed, clock_hz, reps)
             wrapper_ms = time_cuda(
                 lambda: MK.merkle_tree(words, n_levels, m), reps)
+            host_ms = time_cuda(
+                lambda: MK.compute_merkle_root_tpu_ex(hs), reps)
             plain_ms = time_once(
                 lambda: MK.tree_reduce_plain(words, n_levels, m), dev)[0]
     pairs, steps = tree_work(bucket, bucket)
     return {"bucket": bucket, "ms": ms, "plain_ms": plain_ms,
-            "wrapper_ms": wrapper_ms, "max_abs_err": 0, "cases": rows,
-            "launch_plan": tree_plan(n_levels),
-            **bound(pairs * ops["pair"]["alu"], bucket * 32 + 68, clock_hz),
+            "wrapper_ms": wrapper_ms, "host_api_ms": host_ms,
+            "zeroed_ms": zeroed_ms, "max_abs_err": 0, "cases": rows,
+            "launch_plan": plan,
+            **batch_bound(pairs * ops["pair"]["alu"], bucket * 32 + 68,
+                          steps * 192, steps * ops["pair"]["total"],
+                          round_ms, clock_hz),
             "pair_hashes": pairs, "chain_steps": steps,
             "chain_floor_ms": steps * step_ms}
 
 
 def pairs_case(n: int, seed: int, clock_hz: float, ops: dict,
-               step_ms: float, reps: int = 50) -> dict:
+               step_ms: float, round_ms: float, reps: int = 50) -> dict:
     """The sha256d_pairs entry (hash_pairs_words) at n seeded rows against
     its plain version on the card and hashlib, exactly equal; the
     kernel's device time (time_device), the wrapper's, the plain time and
@@ -2051,7 +2167,8 @@ def pairs_case(n: int, seed: int, clock_hz: float, ops: dict,
     plain_ms = time_once(lambda: MK.hash_pairs_plain(words), dev)[0]
     return {"N": n, "ms": ms, "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
             "max_abs_err": 0,
-            **bound(n * ops["pair"]["alu"], n * 96, clock_hz),
+            **batch_bound(n * ops["pair"]["alu"], n * 96, 192,
+                          ops["pair"]["total"], round_ms, clock_hz),
             "chain_floor_ms": step_ms}
 
 
@@ -4349,6 +4466,22 @@ def main() -> int:
                 f"instructions, {batch[kernel]['sass_alu']} ALU-pipe only; "
                 f"the rounds count {bops[key]} a {key} (ALU ratio "
                 f"{batch[kernel]['sass_alu'] / bops[key]['alu']:.3f})")
+    # the chain step's census: its loop body is one sha256d_64, 3
+    # compressions, beside the count taken from the rounds
+    chain_sass = sass.get("sha256d_chain_kernel")
+    parts = bops["pair"]["compressions"]
+    if chain_sass is not None:
+        log(f"SASS of sha256d_chain_kernel: {chain_sass['total']} "
+            f"instructions ({chain_sass['alu']} ALU-pipe only), "
+            f"{chain_sass['total'] / 3:.0f} a compression; the rounds count "
+            f"{' + '.join(map(str, parts))} = {sum(parts)} a sha256d_64, "
+            f"{sum(parts) / 3:.0f} a compression; top "
+            f"{chain_sass['top']}")
+    path_sass = sass.get("sha256_round_path_kernel")
+    if path_sass is not None:
+        log(f"SASS of sha256_round_path_kernel: {path_sass['total']} "
+            f"instructions for its 64 rounds ({path_sass['alu']} ALU-pipe "
+            f"only); top {path_sass['top']}")
 
     if sharded_only:
         # the sharded paths alone, over every card of the host
@@ -4478,35 +4611,49 @@ def main() -> int:
     log(f"sha256d_chain: one dependent sha256d_64 (3 compressions) "
         f"{chain['step_ms'] * 1e3:.3f} us = {chain['cycles_a_step']:.0f} "
         f"cycles; equal to hashlib's chain")
-    step = chain["step_ms"]
-    hdr_rows = [header_case(B, 400 + i, clock_hz, bops, step)
+    path = round_path(clock_hz)
+    log(f"sha256_round_path: one round's e -> e' path "
+        f"{path['round_ms'] * 1e6:.3f} ns = {path['cycles_a_round']:.2f} "
+        f"cycles, {192 * path['round_ms'] * 1e3:.3f} us for the 192 rounds "
+        f"of a sha256d; equal to its model")
+    step, rnd = chain["step_ms"], path["round_ms"]
+    hdr_rows = [header_case(B, 400 + i, clock_hz, bops, step, rnd)
                 for i, B in enumerate(HEADER_SHAPES)]
-    tree_rows = [tree_case(b, 500 + i, clock_hz, bops, step)
+    tree_rows = [tree_case(b, 500 + i, clock_hz, bops, step, rnd)
                  for i, b in enumerate(TREE_BUCKETS)]
-    pair_rows = [pairs_case(n, 600 + i, clock_hz, bops, step)
+    pair_rows = [pairs_case(n, 600 + i, clock_hz, bops, step, rnd)
                  for i, n in enumerate(PAIR_SHAPES)]
+
+    def bound_text(r):
+        return (f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+                f"{r['bound_of']}; the card {r['card_bound_ms']:.5f}, the "
+                f"dependent path {r['path_bound_ms']:.5f}), this design's "
+                f"issue floor {r['issue_floor_ms']:.5f}")
+
     for r in hdr_rows:
         log(f"sha256d_headers B={r['B']}: kernel {r['ms']:.4f} ms (the "
             f"wrapper {r['wrapper_ms']:.4f} ms a call), plain "
-            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}), chain floor {r['chain_floor_ms']:.4f} ms; "
-            f"check_headers_pow {r['pow_ms']:.4f} ms, plain "
-            f"{r['pow_plain_ms']:.1f} ms; equal to the plain versions, "
+            f"{r['plain_ms']:.1f} ms, {bound_text(r)}, chain floor "
+            f"{r['chain_floor_ms']:.4f} ms; check_headers_pow "
+            f"{r['pow_ms']:.4f} ms, plain {r['pow_plain_ms']:.1f} ms, "
+            f"{bound_text(r['pow_bound'])}; equal to the plain versions, "
             f"hashlib and the compare")
     for r in tree_rows:
         log(f"merkle_tree bucket={r['bucket']} (launches "
             f"{r['launch_plan']}): kernel {r['ms']:.4f} ms at m = bucket "
-            f"(the wrapper {r['wrapper_ms']:.4f} ms a call), "
-            f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}, {r['pair_hashes']} pair hashes), chain "
-            f"floor {r['chain_floor_ms']:.4f} ms ({r['chain_steps']} "
-            f"dependent hashes); cases {r['cases']} equal to the plain "
-            f"version and the host oracles")
+            f"({r['zeroed_ms']:.4f} ms with the ticket counter zeroed "
+            f"before each call; the wrapper {r['wrapper_ms']:.4f} ms a "
+            f"call, compute_merkle_root_tpu_ex {r['host_api_ms']:.4f} ms), "
+            f"plain {r['plain_ms']:.1f} ms, {bound_text(r)}, "
+            f"{r['pair_hashes']} pair hashes, chain floor "
+            f"{r['chain_floor_ms']:.4f} ms ({r['chain_steps']} dependent "
+            f"hashes); cases {r['cases']} equal to the plain version and "
+            f"the host oracles")
     for r in pair_rows:
         log(f"sha256d_pairs N={r['N']}: kernel {r['ms']:.4f} ms (the "
             f"wrapper {r['wrapper_ms']:.4f} ms a call), plain "
-            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}); equal to the plain version and hashlib")
+            f"{r['plain_ms']:.1f} ms, {bound_text(r)}; equal to the plain "
+            f"version and hashlib")
 
     # 4. a known answer: the mainnet genesis window
     gen = genesis_phase()
@@ -4836,10 +4983,15 @@ def main() -> int:
             "replaces": where, "launches": launches, "max_abs_err": 0,
             "ms": row[keys["ms"]], "plain_ms": row[keys["plain_ms"]],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "chain_floor_ms": row["chain_floor_ms"],
+            "library_ms": None, "bound_of": row["bound_of"],
+            "chain_floor_ms": row["chain_floor_ms"],
             "shapes": [{k: r[k] for k in ("B", "bucket", "N", "ms",
-                                          "pow_ms", "wrapper_ms", "plain_ms",
-                                          "bound_ms", "chain_floor_ms")
+                                          "pow_ms", "wrapper_ms", "zeroed_ms",
+                                          "host_api_ms", "plain_ms",
+                                          "bound_ms", "bound_of",
+                                          "card_bound_ms", "path_bound_ms",
+                                          "issue_floor_ms",
+                                          "chain_floor_ms", "launch_plan")
                         if k in r}
                        for r in rows]})
     # the MSM: the verdict entry's launches on its paths (the Schnorr

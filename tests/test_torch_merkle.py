@@ -11,12 +11,17 @@ Cost: the JAX tree and pair programs run eagerly under jax.disable_jit()
 (their jit is minutes of XLA compile on a CPU): one 128-leaf bucket, about
 15 s, and 128 pair rows. Everything else is held against the oracles.
 
-The tree kernel's schedule (launches of up to 8 levels, blocks over
-subtrees, the whole tree's live count in every block, dead pairs skipped)
-has a model here, ``model_merkle_tree``, written after
-csrc/sha256d_batch.cu's loops: run with fewer levels a launch, it takes
-the multi-launch path at small sizes, and slots a launch leaves unwritten
-hold a poison value, so a live node that read one would show.
+The tree kernel's schedule (blocks of up to 8 levels over subtrees, the
+whole tree's live count in every block, dead pairs skipped; up to 16
+levels one launch, in which each block writes its root and `mutated`
+word and takes a ticket, and the block that draws the last ticket reduces
+the levels above; deeper trees chain launches of 8 levels) has a model
+here, ``model_merkle_tree``, written after csrc/sha256d_batch.cu's loops:
+run with fewer levels a block, it takes the two-stage and the chained
+paths at small sizes; its blocks run in a seeded shuffled order (the
+card's blocks run in none); slots a launch leaves unwritten hold a poison
+value (a `mutated` word an unwritten marker that raises when read), so a
+live node that read one would show.
 """
 
 import dataclasses
@@ -179,62 +184,144 @@ def test_tree_edges_of_the_live_count():
         M.merkle_tree(words, 7, 1 << 32)
 
 
+@pytest.mark.parametrize("dup", [False, True])
+def test_the_root_is_read_in_one_copy(monkeypatch, dup):
+    """compute_merkle_root_tpu_ex reads the tree's 17 words in one copy and
+    returns what it returned when it read root, mutated and witness
+    apart: 600 leaves, and 600 with the last 8 repeated (mutated)."""
+    hs = leaves(600)
+    if dup:
+        hs = hs + hs[-8:]
+    root, mutated, _witness = M.merkle_tree(bucket_words(hs, 1024), 10,
+                                            len(hs))
+    before = (digest(root), bool(mutated), True)
+    reads = Counter(monkeypatch, M, "_to_host")
+    assert M.compute_merkle_root_tpu_ex(hs) == before
+    assert len(reads.calls) == 1
+    assert before[:2] == cmerkle.compute_merkle_root(hs)
+    assert before[1] is dup
+
+
 # ---- the kernel's schedule --------------------------------------------------
 
-POISON = (0xDEADBEEF,) * 8  # a slot no launch wrote
+POISON = (0xDEADBEEF,) * 8  # a node no block wrote
+UNWRITTEN = "unwritten"  # a `mutated` word no block wrote
 
 
 def _pair_hash(l: tuple, r: tuple) -> tuple:
     return struct.unpack(">8I", sha256d(struct.pack(">16I", *l, *r)))
 
 
-def model_merkle_tree(leaf_words: list, n_levels: int, m: int,
-                      tree_levels: int = M.TREE_LEVELS):
-    """csrc/sha256d_batch.cu's merkle_tree entry and merkle_tree_kernel, in
-    Python: launches of up to ``tree_levels`` levels; block b of a launch
-    reduces its subtree through the ping-pong regions; every block carries
-    the whole tree's live count and tests pairs by their global index;
-    dead pairs are skipped. Returns (root, mutated, witness) as tuples."""
-    src = list(leaf_words)
-    left, bottom = n_levels, True
-    mutated, witness = False, None
-    while left > 0:
-        lv = min(tree_levels, left)
-        dst = [POISON] * (1 << (left - lv))
-        for b in range(len(dst)):
-            S = 1 << (lv - 1)
-            region = ([POISON] * S, [POISON] * (S // 2))
-            mm = m
-            for j in range(lv):
-                src_region, out = region[(j + 1) & 1], region[j & 1]
-                done = mm <= 1
-                for i in range(S >> j):
-                    gi = (b << (lv - 1 - j)) + i
-                    if 2 * gi >= mm and gi != 0:
-                        continue
-                    live = 2 * gi + 1 < mm
-                    node = (lambda k: src[2 * gi + k]) if j == 0 else \
-                        (lambda k: src_region[2 * i + k])
-                    l = node(0)
-                    r = node(1) if live else l
-                    if live and l == r:
-                        mutated = True
-                    is_witness = bottom and j == 0 and gi == 0
-                    if done:
-                        out[i] = l
-                    if not done or is_witness:
-                        h = _pair_hash(l, r)
-                        if is_witness:
-                            witness = h
-                        if not done:
-                            out[i] = h
+def _advance(m: int, levels: int) -> int:
+    for _ in range(levels):
+        m = m if m <= 1 else (m + 1) // 2
+    return m
+
+
+def _or_words(words) -> bool:
+    for w in words:
+        assert w is not UNWRITTEN, "read a mutated word no block wrote"
+    return any(words)
+
+
+def model_launch_plan(n_levels: int, tree_levels: int = M.TREE_LEVELS,
+                      blocks_log2: int = M.TREE_BLOCKS_LOG2):
+    """The merkle_tree entry's launches, (levels a block, blocks, top): top
+    -1 for a chained launch of tree_levels levels a block, 0 for a
+    one-block launch, otherwise the levels the last block reduces above
+    the others (at most 2**blocks_log2 blocks of at least tree_levels
+    levels)."""
+    plan, left = [], n_levels
+    while True:
+        if left <= tree_levels:
+            lv, top = left, 0
+        elif left <= 2 * tree_levels:
+            lv = max(tree_levels, left - blocks_log2)
+            top = left - lv
+        else:
+            lv, top = tree_levels, -1
+        plan.append((lv, 1 << (left - lv), top))
+        if top >= 0:
+            return plan
+        left -= lv
+
+
+def _model_block(src, src_mut, b: int, lv: int, m: int, witness: list):
+    """One block of merkle_tree_kernel's reduce_subtree: nodes
+    [b << lv, (b + 1) << lv) of src through lv levels in the ping-pong
+    regions; the witness (pair 0 of the tree's first level) into
+    witness[0] when witness is given. Returns (root, mutated), mutated
+    with the src_mut words of its inputs ORed in."""
+    S = 1 << (lv - 1)
+    region = ([POISON] * S, [POISON] * (S // 2))
+    mutated = False
+    for j in range(lv):
+        src_region, out = region[(j + 1) & 1], region[j & 1]
+        done = m <= 1
+        for i in range(S >> j):
+            gi = (b << (lv - 1 - j)) + i
+            if 2 * gi >= m and gi != 0:
+                continue
+            live = 2 * gi + 1 < m
+            node = (lambda k: src[2 * gi + k]) if j == 0 else \
+                (lambda k: src_region[2 * i + k])
+            l = node(0)
+            r = node(1) if live else l
+            if live and l == r:
+                mutated = True
+            is_witness = witness is not None and j == 0 and gi == 0
+            if done:
+                out[i] = l
+            if not done or is_witness:
+                h = _pair_hash(l, r)
+                if is_witness:
+                    witness[0] = h
                 if not done:
-                    mm = (mm + 1) // 2
-            dst[b] = region[(lv - 1) & 1][0]
-        for _ in range(lv):
-            m = m if m <= 1 else (m + 1) // 2
-        src, left, bottom = dst, left - lv, False
-    return src[0], mutated, witness
+                    out[i] = h
+        if not done:
+            m = (m + 1) // 2
+    if src_mut is not None:
+        mutated = _or_words(src_mut[b << lv:(b + 1) << lv]) or mutated
+    return region[(lv - 1) & 1][0], mutated
+
+
+def model_merkle_tree(leaf_words: list, n_levels: int, m: int,
+                      tree_levels: int = M.TREE_LEVELS, launches=None,
+                      blocks_log2: int = M.TREE_BLOCKS_LOG2):
+    """csrc/sha256d_batch.cu's merkle_tree entry and merkle_tree_kernel, in
+    Python: the launches of model_launch_plan (appended to ``launches``
+    when given); a launch's blocks in a seeded shuffled order, each over
+    its subtree with the whole tree's live count; a one-block launch
+    writes the result; otherwise each block writes its root and
+    `mutated` word, and in the last launch takes a ticket: the block
+    that draws the last reduces the top levels over the blocks' roots and
+    ORs their words. Returns (root, mutated, witness) as tuples."""
+    src, src_mut = list(leaf_words), None
+    witness = [POISON]
+    order = random.Random(n_levels * 4099 + m)
+    for k, (lv, blocks, top) in enumerate(model_launch_plan(
+            n_levels, tree_levels, blocks_log2)):
+        if launches is not None:
+            launches.append((lv, blocks, top))
+        dst, dst_mut = [POISON] * blocks, [UNWRITTEN] * blocks
+        tickets = 0
+        for b in order.sample(range(blocks), blocks):
+            root, mutated = _model_block(src, src_mut, b, lv, m,
+                                         witness if k == 0 and b == 0
+                                         else None)
+            if top == 0:
+                result = (root, mutated)
+                continue
+            dst[b], dst_mut[b] = root, mutated
+            if top > 0:
+                tickets += 1
+                if tickets == blocks:  # the last ticket: the top levels
+                    root, mutated = _model_block(dst, None, 0, top,
+                                                 _advance(m, lv), None)
+                    result = (root, _or_words(dst_mut) or mutated)
+        if top >= 0:
+            return result[0], result[1], witness[0]
+        src, src_mut, m = dst, dst_mut, _advance(m, lv)
 
 
 def _leaf_sets(n: int) -> list:
@@ -266,15 +353,78 @@ def test_kernel_schedule_model_equals_the_reference_rules(tree_levels):
                 assert struct.pack(">8I", *witness) == sha256d(hs[0] + pair1)
 
 
+def test_kernel_schedule_model_spreads_the_lower_blocks():
+    """Blocks of more than tree_levels levels below the last block (the
+    kernel's 2^16 leaves: 128 blocks of 9 levels), at small sizes: 2
+    levels a block, at most 2 blocks under the last."""
+    for n_levels in range(1, 7):
+        bucket = 1 << n_levels
+        for hs in _leaf_sets(bucket)[:2]:
+            words = [struct.unpack(">8I", h) for h in hs]
+            for m in range(1, bucket + 1):
+                launches = []
+                root, mutated, witness = model_merkle_tree(
+                    words, n_levels, m, 2, launches, blocks_log2=1)
+                assert (struct.pack(">8I", *root), mutated) == \
+                    cmerkle.compute_merkle_root(hs[:m]), (n_levels, m)
+                pair1 = hs[1] if m >= 2 else hs[0]
+                assert struct.pack(">8I", *witness) == sha256d(hs[0] + pair1)
+                if n_levels == 4:
+                    assert launches == [(3, 2, 1)]
+
+
 @pytest.mark.parametrize("m", [1, 2, 129, 256, 257, 300, 511, 512])
 def test_kernel_schedule_model_takes_two_launches_at_512_leaves(m):
+    """512 leaves: the kernel as built takes the two-stage launch (2 blocks
+    of 8 levels, the last block's top level); with 4 levels a block, two
+    launches (a chained launch of 32 blocks, then 2 blocks and a top)."""
     hs = _leaf_sets(512)[1]
     words = [struct.unpack(">8I", h) for h in hs]
-    root, mutated, witness = model_merkle_tree(words, 9, m)
-    assert (struct.pack(">8I", *root), mutated) == \
-        cmerkle.compute_merkle_root(hs[:m])
-    assert struct.pack(">8I", *witness) == \
-        sha256d(hs[0] + (hs[1] if m >= 2 else hs[0]))
+    for tree_levels, plan in ((M.TREE_LEVELS, [(8, 2, 1)]),
+                              (4, [(4, 32, -1), (4, 2, 1)])):
+        launches = []
+        root, mutated, witness = model_merkle_tree(words, 9, m, tree_levels,
+                                                   launches)
+        assert launches == plan
+        assert (struct.pack(">8I", *root), mutated) == \
+            cmerkle.compute_merkle_root(hs[:m])
+        assert struct.pack(">8I", *witness) == \
+            sha256d(hs[0] + (hs[1] if m >= 2 else hs[0]))
+
+
+@pytest.mark.parametrize("n_levels,ms", [
+    (12, [4096, 3073, 2049, 2, 1]), (16, [49153])])
+def test_kernel_schedule_model_takes_one_launch_to_16_levels(n_levels, ms):
+    bucket = 1 << n_levels
+    hs = leaves(bucket, "one-launch")
+    hs[bucket // 2 + 7] = hs[bucket // 2 + 6]  # a live equal pair
+    words = [struct.unpack(">8I", h) for h in hs]
+    for m in ms:
+        launches = []
+        root, mutated, witness = model_merkle_tree(words, n_levels, m,
+                                                   launches=launches)
+        assert launches == [{12: (8, 16, 4), 16: (9, 128, 7)}[n_levels]]
+        assert (struct.pack(">8I", *root), mutated) == \
+            cmerkle.compute_merkle_root(hs[:m])
+        assert struct.pack(">8I", *witness) == \
+            sha256d(hs[0] + (hs[1] if m >= 2 else hs[0]))
+
+
+def test_kernel_launch_plan_is_one_launch_to_2_16_leaves_and_chains_above():
+    assert model_launch_plan(9) == [(8, 2, 1)]
+    assert model_launch_plan(12) == [(8, 16, 4)]
+    assert model_launch_plan(15) == [(8, 128, 7)]
+    assert model_launch_plan(16) == [(9, 128, 7)]  # one block an SM
+    assert all(len(model_launch_plan(n)) == 1 for n in range(1, 17))
+    assert model_launch_plan(17) == [(8, 512, -1), (8, 2, 1)]
+    assert model_launch_plan(24) == [(8, 65536, -1), (9, 128, 7)]
+    assert model_launch_plan(25) == [(8, 1 << 17, -1), (8, 512, -1),
+                                     (8, 2, 1)]
+    # every level reduced once, by blocks of at most 8 levels
+    for n in range(1, 41):
+        plan = model_launch_plan(n)
+        assert sum(lv for lv, _b, _t in plan) + max(plan[-1][2], 0) == n
+        assert len(plan) == max(1, (n - 9) // 8 + 1)
 
 
 @pytest.mark.parametrize("m", [0, 1, 2, 33, 64, 65, 100, 127, 128])
@@ -315,7 +465,7 @@ def test_sha256d_pairs_equals_hashlib(n, monkeypatch):
 # ---- ops/dispatch.merkle_root: the gate and the CPU confirmation ----------
 
 def test_the_gate_sends_512_leaves_to_the_tree(monkeypatch):
-    tree = Counter(monkeypatch, M, "merkle_tree")
+    tree = Counter(monkeypatch, M, "merkle_tree_words")
     host = Counter(monkeypatch, cmerkle, "compute_merkle_root")
     for n, want_tree in ((511, 0), (512, 1)):
         hs = leaves(n)
@@ -422,7 +572,7 @@ def test_check_block_merkle_rules_on_a_600_leaf_block(monkeypatch):
     params = regtest_params()
     cs = ChainstateManager(params, MemoryCoinsView(), MemoryBlockStore(),
                            script_verifier=None)
-    tree = Counter(monkeypatch, M, "merkle_tree")
+    tree = Counter(monkeypatch, M, "merkle_tree_words")
     block = _dummy_block(600)
     cs.check_block(block, check_pow=False)
     # 600 leaves: the third level has 75 nodes, so repeating the last 8
