@@ -24,6 +24,9 @@ traces a program, so there is no replication check to turn off.
 
 from __future__ import annotations
 
+import contextlib
+import time
+
 import torch
 
 from ..ops import cuda_build
@@ -34,6 +37,46 @@ CPU_DEVICES = 8
 
 # one stream a (card, shard slot), made at first use and kept
 _STREAMS: dict = {}
+
+# The parts of the sharded calls, when a caller asks for them (chip_smoke.py's
+# breakdown sets PARTS to {}): host seconds by part ("pack", "stage",
+# "submit", "wait", "copy_back", "fold", "recheck") summed over the calls
+# since, and under "kernel_ms" each shard's launch span on its stream from
+# CUDA events. None, the default: nothing is recorded.
+PARTS = None
+_SPANS: list = []
+
+
+def note(part: str, t0: float) -> float:
+    """Add the host seconds since ``t0`` to PARTS[part] when recording;
+    returns the clock's reading, the next part's start."""
+    t = time.perf_counter()
+    if PARTS is not None:
+        PARTS[part] = PARTS.get(part, 0.0) + t - t0
+    return t
+
+
+@contextlib.contextmanager
+def kernel_span(dev):
+    """Bracket a launch with timing events on ``dev``'s current stream
+    when recording (resolved into PARTS["kernel_ms"] by ``spans_done``)."""
+    if PARTS is None or dev.type != "cuda":
+        yield
+        return
+    s = torch.cuda.current_stream(dev)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record(s)
+    yield
+    b.record(s)
+    _SPANS.append((a, b))
+
+
+def spans_done() -> None:
+    """Move the finished launch spans into PARTS["kernel_ms"]."""
+    if PARTS is not None:
+        PARTS.setdefault("kernel_ms", []).extend(
+            a.elapsed_time(b) for a, b in _SPANS)
+    _SPANS.clear()
 
 
 def local_devices() -> list:
@@ -99,7 +142,9 @@ def run_shards(devices: list, body, shards: list) -> list:
     if len(devices) == 1:
         with torch.cuda.device(devices[0]):
             out = body(devices[0], *shards[0])
+        t0 = time.perf_counter()
         torch.cuda.current_stream(devices[0]).synchronize()
+        note("wait", t0)
         return [out]
     outs, events = [], []
     for slot, (dev, args) in enumerate(zip(devices, shards)):
@@ -110,6 +155,8 @@ def run_shards(devices: list, body, shards: list) -> list:
                 outs.append(body(dev, *args))
                 events.append(torch.cuda.Event())
                 events[-1].record(s)
+    t0 = time.perf_counter()
     for ev in events:
         ev.synchronize()
+    note("wait", t0)
     return outs

@@ -27,12 +27,15 @@ the host-split route is reached through ``_sharded_glv`` itself.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..ops import secp256k1 as S
 from ..util import devicewatch as _dw
-from .mesh import layout, run_shards
+from . import mesh
+from .mesh import layout, note, run_shards
 
 # per-shard lane granularity: the byte entries take multiples of 1024
 # lanes
@@ -70,13 +73,24 @@ def _verify_shards(verify, arrays, qinf8, devices: list) -> tuple:
     """One ``verify`` launch a shard on its rows; the folded (ok, degen,
     fails): planes in row order, fails summed over the shards."""
     def body(dev, *shard):
-        return verify(*_on(dev, shard))
+        t0 = time.perf_counter()
+        ts = _on(dev, shard)
+        t0 = note("stage", t0)
+        with mesh.kernel_span(dev):
+            out = verify(*ts)
+        note("submit", t0)
+        return out
 
     outs = run_shards(devices, body, _rows(arrays, len(devices)))
-    ok = np.concatenate([o.cpu().numpy() for o, _ in outs]).astype(bool)
-    degen = np.concatenate([d.cpu().numpy() for _, d in outs]).astype(bool)
+    t0 = time.perf_counter()
+    host = [(o.cpu().numpy(), d.cpu().numpy()) for o, d in outs]
+    t0 = note("copy_back", t0)
+    mesh.spans_done()
+    ok = np.concatenate([o for o, _ in host]).astype(bool)
+    degen = np.concatenate([d for _, d in host]).astype(bool)
     # the reference's psum of each shard's failures among real lanes
     fails = int(np.sum((~ok | degen) & (np.asarray(qinf8) == 0)))
+    note("fold", t0)
     return ok, degen, fails
 
 
@@ -118,10 +132,20 @@ def _sharded_msm(xm, ym, inf8, km, devices: list) -> list:
     whole MSM kernel (K9, ``msm_partial_point``'s launch) over its terms.
     Returns each shard's ((X, Y, Z), inf), canonical, in shard order."""
     def body(dev, *shard):
-        return S.msm_partial_launch(*_on(dev, shard))
+        t0 = time.perf_counter()
+        ts = _on(dev, shard)
+        t0 = note("stage", t0)
+        with mesh.kernel_span(dev):
+            out = S.msm_partial_launch(*ts)
+        note("submit", t0)
+        return out
 
     outs = run_shards(devices, body, _rows([xm, ym, inf8, km], len(devices)))
-    return [S.msm_partial_result(o) for o in outs]
+    t0 = time.perf_counter()
+    parts = [S.msm_partial_result(o) for o in outs]
+    note("copy_back", t0)
+    mesh.spans_done()
+    return parts
 
 
 def msm_is_infinity_sharded(terms, n_chips: int, devices=None) -> bool:
@@ -139,12 +163,15 @@ def msm_is_infinity_sharded(terms, n_chips: int, devices=None) -> bool:
     per_chip = _msm_bucket_for(
         max(1, (len(terms) + n_chips - 1) // n_chips))
     bucket = per_chip * n_chips
+    t0 = time.perf_counter()
     arrays = [np.asarray(a) for a in _msm_pack(terms, bucket)]
+    note("pack", t0)
     dw.note_transfer("sig_shard", "h2d",
                      sum(int(a.nbytes) for a in arrays))
     with _PW_SHARD_MSM.dispatch((bucket, n_chips)):
         out = _sharded_msm(*arrays, devices=devices)
     # host fold: Jacobian partials -> affine -> oracle point_add chain
+    t0 = time.perf_counter()
     acc = None
     for c in range(n_chips):
         (x, y, z), inf = out[c]
@@ -156,6 +183,7 @@ def msm_is_infinity_sharded(terms, n_chips: int, devices=None) -> bool:
         pt = ((x * zi * zi) % oracle.P,
               (y * zi * zi * zi) % oracle.P)
         acc = pt if acc is None else oracle.point_add(acc, pt)
+    note("fold", t0)
     return acc is None
 
 
@@ -191,8 +219,10 @@ def verify_batch_sharded(records, n_chips: int,
             and ecdsa_batch.glv_dev_enabled()):
         # fused device-decompose program: the host pack is the w4 byte
         # emit, each chip splits its own scalar shard in-kernel
+        t0 = time.perf_counter()
         arrays = [np.asarray(a)
                   for a in pack_records_w4_bytes(records, bucket)]
+        note("pack", t0)
         dw.note_transfer("sig_shard", "h2d",
                          sum(int(a.nbytes) for a in arrays))
         # mesh-width x bucket is the compiled-shape signature; no budget —
@@ -200,26 +230,32 @@ def verify_batch_sharded(records, n_chips: int,
         with dw.program("sig_shard_glv_dev").dispatch((bucket, n_chips)):
             ok, degen, _fails = _sharded_glv_dev(*arrays, devices=devices)
     elif kern == "glv" and ecdsa_batch.glv_enabled():
+        t0 = time.perf_counter()
         arrays = [np.asarray(a) for a in pack_records_glv(records, bucket)]
+        note("pack", t0)
         dw.note_transfer("sig_shard", "h2d",
                          sum(int(a.nbytes) for a in arrays))
         with dw.program("sig_shard_glv").dispatch((bucket, n_chips)):
             ok, degen, _fails = _sharded_glv(*arrays, devices=devices)
     else:
+        t0 = time.perf_counter()
         arrays = [np.asarray(a)
                   for a in pack_records_w4_bytes(records, bucket)]
+        note("pack", t0)
         dw.note_transfer("sig_shard", "h2d",
                          sum(int(a.nbytes) for a in arrays))
         with dw.program("sig_shard_w4").dispatch((bucket, n_chips)):
             ok, degen, _fails = _sharded_w4(*arrays, devices=devices)
     out = np.asarray(ok)[:n].copy()
     degen = np.asarray(degen)[:n]
+    t0 = time.perf_counter()
     idxs = np.nonzero(degen)[0]
     if idxs.size:
         from ..ops.ecdsa_batch import STATS
 
         STATS.degenerate_rechecks += int(idxs.size)
         out[idxs] = _verify_cpu([records[i] for i in idxs])
+    note("recheck", t0)
     return out
 
 

@@ -3584,6 +3584,53 @@ def wall_ms(fn, dev, reps: int) -> float:
     return statistics.median(time_once(fn, dev)[0] for _ in range(reps))
 
 
+# the parts of a sharded call's wall (parallel/mesh.PARTS), host clock
+SHARD_PARTS = ("pack", "stage", "submit", "wait", "copy_back", "fold",
+               "recheck")
+
+
+def call_parts(fn, reps: int) -> dict:
+    """The breakdown of a sharded call: over ``reps`` calls of ``fn`` after
+    a warm-up, each with parallel/mesh.PARTS recording, the median host ms
+    of each part of SHARD_PARTS (pack, staging copy, submission, the wait
+    for the card, copy-back, fold, the host re-check), of the call's wall
+    and of what no part covers ("other"), and the median over calls of
+    the longest shard's kernel span from CUDA events ("kernel_ms")."""
+    from bitcoincashplus_tpu_torch.parallel import mesh
+
+    fn()
+    rows = []
+    for _ in range(reps):
+        mesh.PARTS = {}
+        try:
+            t0 = time.perf_counter()
+            fn()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            got, mesh.PARTS = mesh.PARTS, None
+        row = {k: 1e3 * got.get(k, 0.0) for k in SHARD_PARTS}
+        row["other"] = wall - sum(row.values())
+        row["wall"] = wall
+        row["kernel_ms"] = max(got.get("kernel_ms") or [0.0])
+        rows.append(row)
+    return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+
+
+def parts_text(parts: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+
+
+def timed_pack(pack, *args):
+    """``pack(*args)`` with its host time recorded as the call's "pack"
+    part (the host-split program's pack runs outside the shard call)."""
+    from bitcoincashplus_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    out = pack(*args)
+    mesh.note("pack", t0)
+    return out
+
+
 def _fallbacks() -> dict:
     from bitcoincashplus_tpu_torch.ops import dispatch
     from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
@@ -3714,12 +3761,23 @@ def shard_sig_phase(clock_hz: float, n: int = SHARD_SIGS, seed: int = 1300,
             "glv_verify": (S.ecdsa_verify_batch_glv, S.glv_verify_plain),
             "w4_verify_bytes": (S.ecdsa_verify_batch_pallas_w4_bytes,
                                 S.w4_verify_bytes_plain)}[entry]
-        ms = {}
+        ms, parts = {}, {}
         for lname, lay in lays.items():
             lanes = shard_bucket(n, len(lay)) * len(lay)
             packed = packer(recs, lanes)
             ms[lname] = wall_ms(lambda lay=lay, packed=packed: shard_fn(
                 *packed, devices=lay), dev, reps)
+            # the breakdown of the main path's call at this layout (the
+            # host split: its pack, then the shard-level call)
+            if pack == "glv":
+                call = (lambda lay=lay, lanes=lanes: shard_fn(
+                    *timed_pack(packer, recs, lanes), devices=lay))
+            else:
+                call = (lambda lay=lay, kern={"sharded_glv_dev": "glv",
+                                              "sharded_w4": "w4"}[name]:
+                        sig_shard.verify_batch_sharded(
+                            recs, len(lay), kernel=kern, devices=lay))
+            parts[lname] = call_parts(call, reps)
         packed = packer(recs, B)
         arrays = dict(zip(GLV_NAMES if pack == "glv" else W4_NAMES,
                           [np.ascontiguousarray(a) for a in packed]))
@@ -3735,7 +3793,7 @@ def shard_sig_phase(clock_hz: float, n: int = SHARD_SIGS, seed: int = 1300,
                                        ~dg_k.cpu().numpy()]))
         checks[f"{name} unsharded equal to the plain version"] = same
         progs[name] = {"entry": entry, "replaces": replaces, "B": B,
-                       "ms": ms, "plain_ms": plain_ms,
+                       "ms": ms, "parts": parts, "plain_ms": plain_ms,
                        **verify_bound(entry, arrays, B, clock_hz)}
     return {"n": n, "runs": runs, "host_split": host, "programs": progs,
             "checks": checks}
@@ -3842,7 +3900,7 @@ def shard_msm_phase(clock_hz: float, sizes=SHARD_MSM, seed: int = 1400,
     M = sizes[0][0]
     xm, ym, inf8, km, _want = msm_inputs(M, seed + M, False)
     terms = _terms(xm, ym, inf8, km)
-    ms, work = {}, {}
+    ms, work, parts = {}, {}, {}
     for lname, lay in lays.items():
         width = len(lay)
         per = E._msm_bucket_for(-(-len(terms) // width))
@@ -3850,6 +3908,9 @@ def shard_msm_phase(clock_hz: float, sizes=SHARD_MSM, seed: int = 1400,
         ms[lname] = wall_ms(lambda lay=lay, packed=packed:
                             sig_shard._sharded_msm(*packed, devices=lay),
                             dev, reps)
+        parts[lname] = call_parts(
+            lambda lay=lay: sig_shard.msm_is_infinity_sharded(
+                terms, len(lay), devices=lay), reps)
         work[lname] = [msm_work(packed[3][c * per:(c + 1) * per],
                                 packed[2][c * per:(c + 1) * per])
                        for c in range(width)]
@@ -3863,7 +3924,7 @@ def shard_msm_phase(clock_hz: float, sizes=SHARD_MSM, seed: int = 1400,
     imads = sum(min(w["imads"], w["horner"]["imads"]) for w in work[lname1])
     nbytes = packed[0].shape[0] * (3 * 32 + 1) + 4 * S.MSM_WORDS
     row = {"M": packed[0].shape[0], "terms": len(terms), "ms": ms,
-           "plain_ms": plain_ms, "imads": imads,
+           "parts": parts, "plain_ms": plain_ms, "imads": imads,
            "imads_by_layout": {k: sum(w["imads"] for w in v)
                                for k, v in work.items()},
            **bound(imads, nbytes, clock_hz)}
@@ -4219,6 +4280,9 @@ def shard_phases(clock_hz: float, ops_exact: int) -> tuple:
             f"{', '.join(f'{k} {v:.3f}' for k, v in r['ms'].items())} ms; "
             f"plain {r['plain_ms']:.1f} ms; bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
+        for lname, p in r["parts"].items():
+            log(f"{name} breakdown at {lname} (ms, medians): "
+                f"{parts_text(p)}")
     log(f"phase 7a wall {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     sm = shard_msm_phase(clock_hz)
@@ -4228,6 +4292,9 @@ def shard_phases(clock_hz: float, ops_exact: int) -> tuple:
         f"call wall {', '.join(f'{k} {v:.3f}' for k, v in r['ms'].items())} "
         f"ms; plain {r['plain_ms']:.1f} ms; bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}); shards of padding alone {sm['padding']}")
+    for lname, p in r["parts"].items():
+        log(f"sharded_msm breakdown at {lname} (msm_is_infinity_sharded, "
+            f"{r['terms']} terms; ms, medians): {parts_text(p)}")
     log(f"phase 7b wall {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     sn = shard_nonce_phase(clock_hz, ops_exact)
