@@ -173,15 +173,27 @@ def kernel_libs() -> list:
         return libs
 
 
+# the typed entries already looked up: (name, argtypes) -> function
+_ENTRIES: dict = {}
+
+
 def entry(name: str, argtypes: list):
     """The C entry ``name`` of the kernel libraries, typed: ``argtypes``
     as ctypes types (c_void_p for every pointer and the stream), returning
-    the launch's cudaError_t as an int."""
+    the launch's cudaError_t as an int. Looked up once for each typing and
+    kept (a lookup walks the libraries, each miss a failed dlsym)."""
+    key = (name, tuple(argtypes))
+    fn = _ENTRIES.get(key)
+    if fn is not None:
+        return fn
     for lib in kernel_libs():
         if hasattr(lib, name):
-            fn = getattr(lib, name)
+            # a function object of its own, so that each typing keeps its
+            # argtypes
+            fn = lib[name]
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _ENTRIES[key] = fn
             return fn
     raise KernelUnavailable(f"no kernel library has the entry {name}")
 

@@ -543,47 +543,78 @@ def pack_records_w4(records: Sequence, bucket: int):
     return u1w, u2w, qx, qy, q_inf, r0, rn, wrap_ok
 
 
-def pack_records_w4_bytes(records: Sequence, bucket: int):
+def _zeros(into, i: int, shape) -> np.ndarray:
+    """A pack's i-th output: a new zeroed uint8 array of ``shape``, or
+    ``into[i]`` (a kept buffer of that shape: the sharded path's staging)
+    zeroed in place."""
+    if into is None:
+        return np.zeros(shape, np.uint8)
+    into[i][...] = 0
+    return into[i]
+
+
+def _ones(into, i: int, shape) -> np.ndarray:
+    """As _zeros, filled with ones (the q_inf plane: padding is
+    poisoned)."""
+    if into is None:
+        return np.ones(shape, np.uint8)
+    into[i][...] = 1
+    return into[i]
+
+
+# the bytes of a lane of each output of the packs, in order (32 or 16: a
+# (bucket, w) matrix; 1: a (bucket,) plane)
+W4_BYTES_ROW = (32, 32, 32, 32, 1, 32, 32, 1)
+GLV_ROW = (16, 16, 1, 1, 16, 16, 1, 32, 32, 1, 32, 32, 1)
+MSM_ROW = (32, 32, 1, 32)
+
+
+def pack_records_w4_bytes(records: Sequence, bucket: int, into=None):
     """Byte-matrix pack for the single-dispatch w4 pipeline: every 256-bit
     field as a (bucket, 32) big-endian uint8 matrix (window/limb expansion
     happens in the kernel — ops/secp256k1 entry w4_verify_bytes), masks as uint8
-    vectors. ~5x less host->device traffic than the expanded planes."""
+    vectors. ~5x less host->device traffic than the expanded planes.
+    ``into``: the eight arrays to fill in place (kept buffers; every lane
+    is written), else new ones."""
     n = len(records)
     u1_bytes, u2_bytes, range_ok = _scalar_bitplanes(records, n)
     wraps = [rec.r + oracle.N < oracle.P for rec in records]
 
-    def mat(blob: bytes) -> np.ndarray:
-        out = np.zeros((bucket, 32), np.uint8)
+    def mat(blob: bytes, i: int) -> np.ndarray:
+        out = _zeros(into, i, (bucket, 32))
         out[:n] = np.frombuffer(blob, np.uint8).reshape(n, 32)
         return out
 
-    u1m = np.zeros((bucket, 32), np.uint8)
+    u1m = _zeros(into, 0, (bucket, 32))
     u1m[:n] = u1_bytes
-    u2m = np.zeros((bucket, 32), np.uint8)
+    u2m = _zeros(into, 1, (bucket, 32))
     u2m[:n] = u2_bytes
-    qxb = mat(b"".join(rec.pubkey[0].to_bytes(32, "big") for rec in records))
-    qyb = mat(b"".join(rec.pubkey[1].to_bytes(32, "big") for rec in records))
-    r0b = mat(b"".join(rec.r.to_bytes(32, "big") for rec in records))
+    qxb = mat(b"".join(rec.pubkey[0].to_bytes(32, "big") for rec in records),
+              2)
+    qyb = mat(b"".join(rec.pubkey[1].to_bytes(32, "big") for rec in records),
+              3)
+    r0b = mat(b"".join(rec.r.to_bytes(32, "big") for rec in records), 5)
     rnb = mat(b"".join(
         (rec.r + oracle.N if w else rec.r).to_bytes(32, "big")
         for rec, w in zip(records, wraps)
-    ))
-    q_inf = np.ones(bucket, np.uint8)
+    ), 6)
+    q_inf = _ones(into, 4, bucket)
     q_inf[:n] = 0 if range_ok is None else \
         (~np.asarray(range_ok, bool)).astype(np.uint8)
-    wrap8 = np.zeros(bucket, np.uint8)
+    wrap8 = _zeros(into, 7, bucket)
     wrap8[:n] = np.asarray(wraps, np.uint8)
     return u1m, u2m, qxb, qyb, q_inf, r0b, rnb, wrap8
 
 
 def _glv_pack_parts(u1_bytes, u2_bytes, qx_bytes, qy_bytes, r_bytes,
-                    rn_bytes, wraps, range_bad, bucket: int):
+                    rn_bytes, wraps, range_bad, bucket: int, into=None):
     """Shared host-split GLV pack (the rung below the device split):
     lattice-decompose the (u1, u2) scalars with the numpy limb-batch
     split (ops/secp256k1.glv_split_batch_np) and emit the glv_verify
     kernel's byte matrices. u1/u2/qx/qy/r/rn: (n, 32) uint8 big-endian.
-    range_bad: (n,) bool poison mask or None. Decompose and emit stages
-    are timed into STATS."""
+    range_bad: (n,) bool poison mask or None. ``into``: the thirteen
+    arrays to fill in place (kept buffers; every lane is written), else
+    new ones. Decompose and emit stages are timed into STATS."""
     from . import secp256k1 as dev
 
     n = len(qy_bytes)
@@ -597,14 +628,14 @@ def _glv_pack_parts(u1_bytes, u2_bytes, qx_bytes, qy_bytes, r_bytes,
     dw.note_phase("ecdsa", "decompose", dt)
 
     t0 = time.monotonic()
-    d1m = np.zeros((bucket, 16), np.uint8)
-    d2m = np.zeros((bucket, 16), np.uint8)
-    s1m = np.zeros((bucket, 16), np.uint8)
-    s2m = np.zeros((bucket, 16), np.uint8)
-    sg1 = np.zeros(bucket, np.uint8)
-    sg2 = np.zeros(bucket, np.uint8)
-    ydiff = np.zeros(bucket, np.uint8)
-    qyb = np.zeros((bucket, 32), np.uint8)
+    d1m = _zeros(into, 0, (bucket, 16))
+    d2m = _zeros(into, 1, (bucket, 16))
+    s1m = _zeros(into, 4, (bucket, 16))
+    s2m = _zeros(into, 5, (bucket, 16))
+    sg1 = _zeros(into, 2, bucket)
+    sg2 = _zeros(into, 3, bucket)
+    ydiff = _zeros(into, 6, bucket)
+    qyb = _zeros(into, 8, (bucket, 32))
     if n:
         # comb digits little-endian (position i = weight 256^i); ladder
         # scalars big-endian (MSB-first nibble windows on device)
@@ -621,18 +652,18 @@ def _glv_pack_parts(u1_bytes, u2_bytes, qx_bytes, qy_bytes, r_bytes,
         if fold.any():
             qyb[:n][fold] = dev.field_neg_bytes_np(qy_bytes[fold])
 
-    def pad(mat: np.ndarray) -> np.ndarray:
-        out = np.zeros((bucket, 32), np.uint8)
+    def pad(mat: np.ndarray, i: int) -> np.ndarray:
+        out = _zeros(into, i, (bucket, 32))
         out[:n] = mat
         return out
 
-    q_inf = np.ones(bucket, np.uint8)
+    q_inf = _ones(into, 9, bucket)
     q_inf[:n] = (np.asarray(range_bad, bool).astype(np.uint8)
                  if range_bad is not None else 0)
-    wrap8 = np.zeros(bucket, np.uint8)
+    wrap8 = _zeros(into, 12, bucket)
     wrap8[:n] = np.asarray(wraps, np.uint8)
-    out = (d1m, d2m, sg1, sg2, s1m, s2m, ydiff, pad(qx_bytes), qyb,
-           q_inf, pad(r_bytes), pad(rn_bytes), wrap8)
+    out = (d1m, d2m, sg1, sg2, s1m, s2m, ydiff, pad(qx_bytes, 7), qyb,
+           q_inf, pad(r_bytes, 10), pad(rn_bytes, 11), wrap8)
     dt = time.monotonic() - t0
     STATS.glv_pack_s += dt
     STATS.glv_emit_s += dt
@@ -643,10 +674,11 @@ def _glv_pack_parts(u1_bytes, u2_bytes, qx_bytes, qy_bytes, r_bytes,
 
 
 
-def pack_records_glv(records: Sequence, bucket: int):
+def pack_records_glv(records: Sequence, bucket: int, into=None):
     """pack_records for the GLV kernel: split scalars + signs (the packer
     emits the λ-decomposition; LanePacker buckets are unchanged). Padded
-    lanes are poisoned exactly like the w4 packers."""
+    lanes are poisoned exactly like the w4 packers. ``into`` as
+    pack_records_w4_bytes'."""
     n = len(records)
     u1_bytes, u2_bytes, range_ok = _scalar_bitplanes(records, n)
     wraps = [rec.r + oracle.N < oracle.P for rec in records]
@@ -666,7 +698,7 @@ def pack_records_glv(records: Sequence, bucket: int):
     range_bad = None if range_ok is None else ~np.asarray(range_ok, bool)
     return _glv_pack_parts(
         u1_bytes, u2_bytes, qx_bytes, qy_bytes, r_bytes, rn_bytes, wraps,
-        range_bad, bucket,
+        range_bad, bucket, into,
     )
 
 
@@ -824,15 +856,17 @@ def _msm_bucket_for(m: int) -> int:
     raise ValueError(f"MSM term count {m} exceeds the bucket ladder")
 
 
-def _msm_pack(terms, bucket: int):
-    """(x, y, scalar) Python-int terms -> the MSM kernel's byte matrices,
-    padded to ``bucket`` with infinity-flagged zero-scalar lanes (they add
-    nothing by construction)."""
+def _msm_pack(terms, bucket: int, into=None):
+    """(x, y, scalar) Python-int terms -> the MSM kernel's byte matrices
+    (xm, ym, inf8, km; inf8 uint8), padded to ``bucket`` with
+    infinity-flagged zero-scalar lanes (they add nothing by construction).
+    ``into``: the four arrays to fill in place (kept buffers; every lane is
+    written), else new ones."""
     m = len(terms)
-    xm = np.zeros((bucket, 32), np.uint8)
-    ym = np.zeros((bucket, 32), np.uint8)
-    km = np.zeros((bucket, 32), np.uint8)
-    inf8 = np.ones(bucket, np.uint8)
+    xm = _zeros(into, 0, (bucket, 32))
+    ym = _zeros(into, 1, (bucket, 32))
+    km = _zeros(into, 3, (bucket, 32))
+    inf8 = _ones(into, 2, bucket)
     xm[:m] = np.frombuffer(
         b"".join(x.to_bytes(32, "big") for x, _, _ in terms),
         np.uint8).reshape(m, 32)

@@ -1231,6 +1231,9 @@ def ecdsa_verify_batch_glv(d1m, d2m, sg1v, sg2v, s1m, s2m, ydiff8, qxb, qyb,
     return _glv_split_launches("glv_verify", _u8(args))
 
 
+_DECOMPOSE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+
+
 def glv_decompose_device_batch(km):
     """The split alone on the device: (B, 32) uint8 big-endian scalars ->
     (|k1| (B, 16) uint8 little-endian, n1 (B,) uint8, |k2|, n2) on the
@@ -1243,18 +1246,18 @@ def glv_decompose_device_batch(km):
         return glv_decompose_plain(km)
     if dev.type != "cuda":
         raise KernelUnavailable(f"no GLV kernel for device {dev}")
-    fn = cuda_build.entry("glv_decompose", [ctypes.c_void_p] * 5
-                          + [ctypes.c_int, ctypes.c_void_p])
-    km = km.contiguous()
-    m1 = torch.empty(B, 16, dtype=torch.uint8, device=dev)
-    m2 = torch.empty_like(m1)
-    n1 = torch.empty(B, dtype=torch.uint8, device=dev)
-    n2 = torch.empty_like(n1)
+    fn = cuda_build.entry("glv_decompose", _DECOMPOSE_ARGS)
+    # one allocation for the four outputs (|k1|, |k2|, n1, n2 back to
+    # back), as the verify wrappers allocate one or two
+    out = torch.empty(34 * B, dtype=torch.uint8, device=dev)
+    m1, m2 = out[:16 * B].view(B, 16), out[16 * B:32 * B].view(B, 16)
+    n1, n2 = out[32 * B:33 * B], out[33 * B:]
+    k, o = km.contiguous().data_ptr(), out.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     for s in range(0, B, GLV_SPLIT):
         n = min(GLV_SPLIT, B - s)
-        rc = fn(km[s:].data_ptr(), m1[s:].data_ptr(), n1[s:].data_ptr(),
-                m2[s:].data_ptr(), n2[s:].data_ptr(), n, stream)
+        rc = fn(k + 32 * s, o + 16 * s, o + 32 * B + s, o + 16 * (B + s),
+                o + 33 * B + s, n, stream)
         cuda_build.check_launch("glv_decompose", rc)
         LAUNCHES["glv_decompose"] += 1
         LAUNCH_SHAPES[("glv_decompose", n)] = \
@@ -1572,30 +1575,45 @@ def _msm_tensors(xm, ym, inf8, km) -> list:
     dev = ts[0].device
     _check([ts[0], ts[1], ts[3]], dev, [(M, 32)] * 3, (torch.uint8,))
     _check([ts[2]], dev, [(M,)], (torch.uint8, torch.bool))
+    if ts[2].dtype == torch.bool:
+        ts[2] = ts[2].to(torch.uint8)
+    ts = [t.contiguous() for t in ts]
     if M < 1 or (2 * M) % msm_streams(M):
         raise ValueError(f"M={M}: its {2 * M} split terms are not a "
                          f"multiple of its stream count {msm_streams(M)}")
     return ts
 
 
+# csrc/msm.cu's scratch, kept per (card, M, stream): the launches on one
+# stream run in order, so they share it; two streams of one card (the
+# sharded MSM's [cuda:0] * 4) each have their own
+_MSM_SCRATCH: dict = {}
+_MSM_RUN_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def _msm_scratch(dev, M: int, stream) -> list:
+    key = (dev.index, M, stream.cuda_stream)
+    scratch = _MSM_SCRATCH.get(key)
+    if scratch is None:
+        scratch = _MSM_SCRATCH[key] = [
+            torch.empty(n, dtype=torch.int32, device=dev)
+            for n in msm_scratch_words(M).values()]
+    return scratch
+
+
 def _msm_launch(name: str, ts: list) -> torch.Tensor:
     """Launch csrc/msm.cu's whole MSM (entry msm_run: the split, the bucket
     walk, the merge levels, the reduction, the combination) on the current
-    stream; returns its 25 result words (int32) on the card. The scratch
-    is allocated here."""
-    xm, ym, inf8, km = ts
-    M = xm.shape[0]
-    K = msm_streams(M)
-    dev = xm.device
-    fn = cuda_build.entry("msm_run", [ctypes.c_void_p] * 8
-                          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    scratch = [torch.empty(n, dtype=torch.int32, device=dev)
-               for n in msm_scratch_words(M).values()]
+    stream; returns its 25 result words (int32) on the card. ``ts`` are
+    _msm_tensors' contiguous inputs (inf8 uint8); the scratch is kept per
+    (card, M, stream)."""
+    M = ts[0].shape[0]
+    dev = ts[0].device
+    fn = cuda_build.entry("msm_run", _MSM_RUN_ARGS)
+    stream = torch.cuda.current_stream(dev)
     out = torch.empty(MSM_WORDS, dtype=torch.int32, device=dev)
-    args = [xm.contiguous(), ym.contiguous(),
-            inf8.to(torch.uint8).contiguous(), km.contiguous()]
-    rc = fn(*[t.data_ptr() for t in args + scratch], out.data_ptr(), M, K,
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(*[t.data_ptr() for t in ts + _msm_scratch(dev, M, stream)],
+            out.data_ptr(), M, msm_streams(M), stream.cuda_stream)
     cuda_build.check_launch("msm_run", rc)
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[(name, M)] = LAUNCH_SHAPES.get((name, M), 0) + 1

@@ -115,48 +115,89 @@ def layout(n_chips: int | None, devices) -> list:
     return devices
 
 
-def _stream(dev: torch.device, slot: int):
-    key = (dev.index, slot)
-    s = _STREAMS.get(key)
-    if s is None:
-        s = _STREAMS[key] = torch.cuda.Stream(dev)
-    return s
+def shard_streams(devices: list) -> list:
+    """(stream, event) of each shard of a CUDA layout: at width 1 the
+    device's current stream, the unsharded call's own; else one stream a
+    (card, slot), made once and kept. One event a (card, slot), kept."""
+    out = []
+    for slot, dev in enumerate(devices):
+        key = (dev.index, slot)
+        kept = _STREAMS.get(key)
+        if kept is None:
+            kept = _STREAMS[key] = (torch.cuda.Stream(dev), torch.cuda.Event())
+        stream = (torch.cuda.current_stream(dev) if len(devices) == 1
+                  else kept[0])
+        out.append((stream, kept[1]))
+    return out
 
 
-def run_shards(devices: list, body, shards: list) -> list:
-    """Run ``body(dev, *shards[i])`` for shard i on ``devices[i]`` and
-    return the bodies' outputs once every shard has finished.
+def _on_stream(stream, width: int):
+    """The shard's stream made current while its work is queued; at width
+    1 nothing to switch (the work queues on the current stream)."""
+    return torch.cuda.stream(stream) if width > 1 else contextlib.nullcontext()
 
-    On the CPU the shards run one after another. On CUDA devices each
-    shard runs with its device current and on a stream of its own (a
-    layout of one shard: the device's current stream), which first waits
-    for that device's current stream; ``body`` moves its host inputs to
-    ``dev`` and launches there, so copies and launch queue on that stream
-    and shards do not serialise on one. The outputs are returned only
-    after every shard's event has completed: a fold never reads a shard
-    still in flight."""
+
+def _same(dev, *args):
+    return args
+
+
+def _kept(dev, out):
+    return out
+
+
+def run_shards(devices: list, launch, shards: list, stage=_same,
+               collect=_kept) -> list:
+    """Queue every shard's work, wait for all of it, and return each
+    shard's output.
+
+    For shard i on ``devices[i]``: ``stage(dev, *shards[i])`` queues its
+    copies in and returns ``launch``'s arguments (by default the shard
+    itself); ``launch(dev, *args)`` queues its kernel; ``collect(dev,
+    out)`` queues the copies of its outputs to host buffers and returns
+    the shard's output (by default ``launch``'s). Every shard's copies in
+    are queued before any launch, so the cards' copy engines start
+    together, and every shard's launch and copies out before any wait:
+    nothing synchronises between two shards' submissions. The outputs are
+    returned once every shard's event has completed.
+
+    On the CPU the three run one after another, shard by shard. On CUDA
+    devices shard i queues on ``shard_streams(devices)[i]``: at width 1
+    the device's current stream (no device or stream switch, and the wait
+    is on the shard's event, not on the device); else a stream a (card,
+    slot). A shard's work reads only what it stages from the host and
+    what was made once and synchronised (the GLV comb), so its stream
+    waits on no other. On an error every stream is drained before it is
+    raised: no copy is left reading a host buffer that the next call
+    refills."""
     if len(devices) != len(shards):
         raise ValueError(f"{len(shards)} shards for {len(devices)} devices")
     if devices[0].type == "cpu":
-        return [body(dev, *args) for dev, args in zip(devices, shards)]
-    if len(devices) == 1:
-        with torch.cuda.device(devices[0]):
-            out = body(devices[0], *shards[0])
+        return [collect(dev, launch(dev, *stage(dev, *args)))
+                for dev, args in zip(devices, shards)]
+    lanes = shard_streams(devices)
+    width = len(devices)
+    try:
         t0 = time.perf_counter()
-        torch.cuda.current_stream(devices[0]).synchronize()
+        staged = []
+        for dev, (s, _ev), args in zip(devices, lanes, shards):
+            with _on_stream(s, width):
+                staged.append(stage(dev, *args))
+        t0 = note("stage", t0)
+        outs = []
+        for dev, (s, ev), args in zip(devices, lanes, staged):
+            with _on_stream(s, width):
+                with kernel_span(dev):
+                    out = launch(dev, *args)
+                outs.append(collect(dev, out))
+                ev.record(s)
+        t0 = note("submit", t0)
+        for _s, ev in lanes:
+            ev.synchronize()
         note("wait", t0)
-        return [out]
-    outs, events = [], []
-    for slot, (dev, args) in enumerate(zip(devices, shards)):
-        with torch.cuda.device(dev):
-            s = _stream(dev, slot)
-            s.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(s):
-                outs.append(body(dev, *args))
-                events.append(torch.cuda.Event())
-                events[-1].record(s)
-    t0 = time.perf_counter()
-    for ev in events:
-        ev.synchronize()
-    note("wait", t0)
+    except BaseException:
+        for s, _ev in lanes:
+            s.synchronize()
+        raise
+    finally:
+        spans_done()
     return outs

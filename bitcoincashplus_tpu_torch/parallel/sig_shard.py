@@ -23,18 +23,30 @@ shards at infinity skipped. ``verify_batch_sharded`` keeps the
 reference's rung choice and the host re-check of degenerate lanes; the
 port's ``glv_dev_enabled()`` is always True (its rungs never latch), so
 the host-split route is reached through ``_sharded_glv`` itself.
+
+How shards reach the cards and come back (``_Staging``, kept per
+program, lanes a shard and layout): the pack writes each shard's inputs
+straight into one pinned host buffer, a shard's rows contiguous (its
+arrays back to back); each shard is one copy of its rows into a device
+buffer that is kept too, and the kernel takes views of it; every shard's
+copy, launch and copies of its outputs into a pinned host buffer are
+queued (mesh.run_shards) before any wait, and the folds read the pinned
+outputs. Results come back to the host, so no card reads another's
+memory. A layout of one card runs on its current stream, as the
+unsharded call does.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
 import torch
 
+from ..ops import ecdsa_batch as E
 from ..ops import secp256k1 as S
 from ..util import devicewatch as _dw
-from . import mesh
 from .mesh import layout, note, run_shards
 
 # per-shard lane granularity: the byte entries take multiples of 1024
@@ -46,106 +58,209 @@ _CHIP_BUCKET = 1024
 # {1, 2, 4, 8}, so the signature space is 6 x 4.
 _PW_SHARD_MSM = _dw.program("sig_shard_msm", shape_budget=24)
 
-
-def _rows(arrays, n_shards: int) -> list:
-    """The shards' row blocks of each (B, ...) array, B a multiple of
-    n_shards."""
-    per = arrays[0].shape[0] // n_shards
-    return [[a[c * per:(c + 1) * per] for a in arrays]
-            for c in range(n_shards)]
-
-
-def _on(dev, arrays) -> list:
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            for a in arrays]
-
-
-def _warm_comb(devices: list) -> None:
-    """Upload the GLV comb to each card on its current stream before the
-    shards' streams (which wait for it) read it."""
-    for dev in {str(d): d for d in devices}.values():
-        if dev.type == "cuda":
-            with torch.cuda.device(dev):
-                S._comb_on(dev, "words")
+# The sharded programs: the per-shard wrapper's name in ops/secp256k1 (or
+# None: the MSM's launch), the bytes of a lane of each of its inputs in
+# argument order (the pack's row widths: 32 or 16 a (lanes, w) matrix, 1 a
+# (lanes,) plane), and the index of its q_inf plane
+_PROGRAMS = {
+    "glv_dev": ("ecdsa_verify_batch_glv_dev", E.W4_BYTES_ROW, 4),
+    "glv": ("ecdsa_verify_batch_glv", E.GLV_ROW, 9),
+    "w4": ("ecdsa_verify_batch_pallas_w4_bytes", E.W4_BYTES_ROW, 4),
+    "msm": (None, E.MSM_ROW, 2),
+}
+_STAGING: dict = {}
 
 
-def _verify_shards(verify, arrays, qinf8, devices: list) -> tuple:
-    """One ``verify`` launch a shard on its rows; the folded (ok, degen,
-    fails): planes in row order, fails summed over the shards."""
-    def body(dev, *shard):
-        t0 = time.perf_counter()
-        ts = _on(dev, shard)
-        t0 = note("stage", t0)
-        with mesh.kernel_span(dev):
-            out = verify(*ts)
-        note("submit", t0)
-        return out
+def _views(buf, row: tuple, per: int) -> list:
+    """A shard's flat byte buffer (numpy or torch) cut into its inputs:
+    (per, w) for each row width w > 1, (per,) for w == 1, back to back."""
+    out, o = [], 0
+    for w in row:
+        a = buf[o:o + per * w]
+        out.append(a.reshape(per, w) if w > 1 else a)
+        o += per * w
+    return out
 
-    outs = run_shards(devices, body, _rows(arrays, len(devices)))
+
+class _Staging:
+    """The kept buffers of one sharded program at one (lanes a shard,
+    layout): a pinned host buffer (width, shard bytes) that the pack fills
+    (``inputs[c]``: shard c's arrays, numpy views); on each shard's card a
+    buffer of a shard's bytes (``args[c]``: the kernel's inputs, views of
+    it); a pinned host buffer of the shards' outputs (``out``). Made once:
+    with it the GLV comb is uploaded to each card and that card's current
+    stream synchronised, so the shards' streams read a finished comb. On a
+    CPU layout the host buffer holds the inputs, and nothing is pinned.
+    ``lock``: one call at a time refills the buffers."""
+
+    def __init__(self, name: str, per: int, devices: list, out_shape: tuple,
+                 out_dtype):
+        _wrapper, row, _qinf = _PROGRAMS[name]
+        width, nbytes = len(devices), per * sum(row)
+        cuda = devices[0].type == "cuda"
+        self.lock = threading.Lock()
+        self.host = torch.empty((width, nbytes), dtype=torch.uint8,
+                                pin_memory=cuda)
+        host = self.host.numpy()
+        self.inputs = [_views(host[c], row, per) for c in range(width)]
+        dev_bufs = ([torch.empty(nbytes, dtype=torch.uint8, device=d)
+                     for d in devices] if cuda else list(self.host))
+        self.dev = dev_bufs
+        self.args = [_views(b, row, per) for b in dev_bufs]
+        self.out = torch.empty((width, *out_shape), dtype=out_dtype,
+                               pin_memory=cuda)
+        if cuda and name in ("glv", "glv_dev"):
+            for d in {str(d): d for d in devices}.values():
+                S._comb_on(d, "words")
+                torch.cuda.current_stream(d).synchronize()
+
+
+def _staging(name: str, per: int, devices: list, out_shape: tuple,
+             out_dtype) -> _Staging:
+    key = (name, per, tuple(devices))
+    st = _STAGING.get(key)
+    if st is None:
+        st = _STAGING[key] = _Staging(name, per, devices, out_shape,
+                                      out_dtype)
+    return st
+
+
+def _copy_rows(arrays, per: int):
+    """A staging fill from packed (B, ...) arrays: shard c's rows copied
+    into its buffers."""
+    def fill(c: int, dst: list) -> None:
+        for d, a in zip(dst, arrays):
+            np.copyto(d, np.asarray(a)[c * per:(c + 1) * per],
+                      casting="unsafe")
+    return fill
+
+
+def _pack_rows(pack, items, per: int):
+    """A staging fill that packs shard c's records (or terms) straight
+    into its buffers."""
+    return lambda c, dst: pack(items[c * per:(c + 1) * per], per, into=dst)
+
+
+def _run_staged(st: _Staging, fill, part: str, devices: list, launch,
+                collect) -> list:
+    """Fill every shard's staging (host seconds noted as ``part``), then
+    mesh.run_shards: each shard's rows copied to its card in one copy,
+    ``launch(dev, c)`` on views of them, ``collect(dev, c, out)``."""
     t0 = time.perf_counter()
-    host = [(o.cpu().numpy(), d.cpu().numpy()) for o, d in outs]
-    t0 = note("copy_back", t0)
-    mesh.spans_done()
-    ok = np.concatenate([o for o, _ in host]).astype(bool)
-    degen = np.concatenate([d for _, d in host]).astype(bool)
-    # the reference's psum of each shard's failures among real lanes
-    fails = int(np.sum((~ok | degen) & (np.asarray(qinf8) == 0)))
-    note("fold", t0)
+    for c in range(len(devices)):
+        fill(c, st.inputs[c])
+    note(part, t0)
+
+    def stage(dev, c):
+        if dev.type == "cuda":
+            st.dev[c].copy_(st.host[c], non_blocking=True)
+        return (c,)
+
+    return run_shards(devices, lambda dev, c: (c, launch(dev, c)),
+                      [(c,) for c in range(len(devices))], stage,
+                      lambda dev, out: collect(dev, *out))
+
+
+def _verify_shards(name: str, fill, part: str, per: int,
+                   devices: list) -> tuple:
+    """One launch of program ``name``'s per-shard wrapper a shard, on the
+    rows ``fill(c, arrays)`` writes into shard c's staging; the folded
+    (ok, degen, fails): planes in row order, fails summed over the
+    shards."""
+    wrapper, _row, qinf = _PROGRAMS[name]
+    verify = getattr(S, wrapper)
+    st = _staging(name, per, devices, (2, per), torch.bool)
+
+    def collect(dev, c, out):
+        for row, plane in zip(st.out[c], out):
+            row.copy_(plane, non_blocking=True)
+
+    with st.lock:
+        _run_staged(st, fill, part, devices,
+                    lambda dev, c: verify(*st.args[c]), collect)
+        t0 = time.perf_counter()
+        # copies: the pinned buffer is the next call's
+        planes = st.out.numpy()
+        ok = planes[:, 0].reshape(-1).copy()
+        degen = planes[:, 1].reshape(-1).copy()
+        q_inf = np.concatenate([a[qinf] for a in st.inputs])
+        # the reference's psum of each shard's failures among real lanes
+        fails = int(np.sum((~ok | degen) & (q_inf == 0)))
+        note("fold", t0)
     return ok, degen, fails
+
+
+def _lanes(arrays, devices: list) -> int:
+    return arrays[0].shape[0] // len(devices)
 
 
 def _sharded_glv(d1m, d2m, sg1, sg2, s1m, s2m, ydiff8, qxb, qyb, qinf8,
                  r0b, rnb, wrap8, devices: list) -> tuple:
     """The GLV verify from the host split (K7, ``glv_verify``) sharded on
-    the batch axis: one launch a shard; (ok, degen, fails)."""
-    _warm_comb(devices)
-    return _verify_shards(
-        S.ecdsa_verify_batch_glv,
-        [d1m, d2m, sg1, sg2, s1m, s2m, ydiff8, qxb, qyb, qinf8, r0b, rnb,
-         wrap8], qinf8, devices)
+    the batch axis, from packed arrays: one launch a shard; (ok, degen,
+    fails)."""
+    arrays = [d1m, d2m, sg1, sg2, s1m, s2m, ydiff8, qxb, qyb, qinf8, r0b,
+              rnb, wrap8]
+    per = _lanes(arrays, devices)
+    return _verify_shards("glv", _copy_rows(arrays, per), "stage", per,
+                          devices)
 
 
 def _sharded_glv_dev(u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8,
                      devices: list) -> tuple:
     """The GLV verify with the split on the card (K6, ``glv_dev_verify``)
-    sharded on the batch axis: raw scalar bytes go to each shard, which
-    splits its own lanes; (ok, degen, fails)."""
-    _warm_comb(devices)
-    return _verify_shards(
-        S.ecdsa_verify_batch_glv_dev,
-        [u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8], qinf8, devices)
+    sharded on the batch axis, from packed arrays: raw scalar bytes go to
+    each shard, which splits its own lanes; (ok, degen, fails)."""
+    arrays = [u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8]
+    per = _lanes(arrays, devices)
+    return _verify_shards("glv_dev", _copy_rows(arrays, per), "stage", per,
+                          devices)
 
 
 def _sharded_w4(u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8,
                 devices: list) -> tuple:
     """The w4 byte verify (K4, ``w4_verify_bytes``) sharded on the batch
-    axis; (ok, degen, fails). Degenerate lanes settle on the host and
-    count as failures here, so the fast verdict stays conservative."""
-    return _verify_shards(
-        S.ecdsa_verify_batch_pallas_w4_bytes,
-        [u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8], qinf8, devices)
+    axis, from packed arrays; (ok, degen, fails). Degenerate lanes settle
+    on the host and count as failures here, so the fast verdict stays
+    conservative."""
+    arrays = [u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8]
+    per = _lanes(arrays, devices)
+    return _verify_shards("w4", _copy_rows(arrays, per), "stage", per,
+                          devices)
+
+
+def _msm_shards(fill, part: str, per: int, devices: list) -> list:
+    """One MSM launch (K9, ``msm_partial_point``'s) a shard, on the terms
+    ``fill(c, arrays)`` writes into shard c's staging. Returns each
+    shard's ((X, Y, Z), inf), canonical, in shard order."""
+    st = _staging("msm", per, devices, (S.MSM_WORDS,), torch.int32)
+
+    def collect(dev, c, pending):
+        if isinstance(pending, tuple):  # the plain version's (the CPU)
+            return pending
+        st.out[c].copy_(pending, non_blocking=True)
+        return None
+
+    with st.lock:
+        outs = _run_staged(st, fill, part, devices,
+                           lambda dev, c: S.msm_partial_launch(*st.args[c]),
+                           collect)
+        t0 = time.perf_counter()
+        parts = [S._words_result(st.out[c]) if o is None else o
+                 for c, o in enumerate(outs)]
+        note("copy_back", t0)
+    return parts
 
 
 def _sharded_msm(xm, ym, inf8, km, devices: list) -> list:
-    """Sharded Pippenger MSM: the TERM axis shards across the layout (MSM
-    is a sum, so it distributes over row shards); each shard runs the
-    whole MSM kernel (K9, ``msm_partial_point``'s launch) over its terms.
-    Returns each shard's ((X, Y, Z), inf), canonical, in shard order."""
-    def body(dev, *shard):
-        t0 = time.perf_counter()
-        ts = _on(dev, shard)
-        t0 = note("stage", t0)
-        with mesh.kernel_span(dev):
-            out = S.msm_partial_launch(*ts)
-        note("submit", t0)
-        return out
-
-    outs = run_shards(devices, body, _rows([xm, ym, inf8, km], len(devices)))
-    t0 = time.perf_counter()
-    parts = [S.msm_partial_result(o) for o in outs]
-    note("copy_back", t0)
-    mesh.spans_done()
-    return parts
+    """Sharded Pippenger MSM from packed arrays: the TERM axis shards
+    across the layout (MSM is a sum, so it distributes over row shards);
+    each shard runs the whole MSM kernel (K9, ``msm_partial_point``'s
+    launch) over its terms. Returns each shard's ((X, Y, Z), inf),
+    canonical, in shard order."""
+    per = _lanes([xm], devices)
+    return _msm_shards(_copy_rows([xm, ym, inf8, km], per), "stage", per,
+                       devices)
 
 
 def msm_is_infinity_sharded(terms, n_chips: int, devices=None) -> bool:
@@ -153,8 +268,9 @@ def msm_is_infinity_sharded(terms, n_chips: int, devices=None) -> bool:
     [(x, y, scalar)] list from the Schnorr batch equation
     (ops/ecdsa_batch builds it); returns True iff Σ kᵢ·Pᵢ is the point
     at infinity. Pads the term count to an MSM bucket per shard so the
-    launch shapes stay on the declared ladder. ``devices`` is the layout
-    (default ``chip_mesh(n_chips)``)."""
+    launch shapes stay on the declared ladder; each shard's terms are
+    packed straight into its staging. ``devices`` is the layout (default
+    ``chip_mesh(n_chips)``)."""
     from ..crypto import secp256k1 as oracle
     from ..ops.ecdsa_batch import _msm_bucket_for, _msm_pack
     from ..util import devicewatch as dw
@@ -163,13 +279,10 @@ def msm_is_infinity_sharded(terms, n_chips: int, devices=None) -> bool:
     per_chip = _msm_bucket_for(
         max(1, (len(terms) + n_chips - 1) // n_chips))
     bucket = per_chip * n_chips
-    t0 = time.perf_counter()
-    arrays = [np.asarray(a) for a in _msm_pack(terms, bucket)]
-    note("pack", t0)
-    dw.note_transfer("sig_shard", "h2d",
-                     sum(int(a.nbytes) for a in arrays))
+    fill = _pack_rows(_msm_pack, terms, per_chip)
+    dw.note_transfer("sig_shard", "h2d", bucket * sum(E.MSM_ROW))
     with _PW_SHARD_MSM.dispatch((bucket, n_chips)):
-        out = _sharded_msm(*arrays, devices=devices)
+        out = _msm_shards(fill, "pack", per_chip, devices)
     # host fold: Jacobian partials -> affine -> oracle point_add chain
     t0 = time.perf_counter()
     acc = None
@@ -179,7 +292,7 @@ def msm_is_infinity_sharded(terms, n_chips: int, devices=None) -> bool:
             continue  # chip saw only padded lanes
         if z == 0:
             continue
-        zi = pow(z, oracle.P - 2, oracle.P)
+        zi = pow(z, -1, oracle.P)
         pt = ((x * zi * zi) % oracle.P,
               (y * zi * zi * zi) % oracle.P)
         acc = pt if acc is None else oracle.point_add(acc, pt)
@@ -191,9 +304,10 @@ def verify_batch_sharded(records, n_chips: int,
                          kernel: str | None = None,
                          devices=None) -> np.ndarray:
     """Shard a record batch across the layout; returns (len(records),)
-    bool. Pads B up to n_chips * 1024-lane shards with poisoned lanes;
-    degenerate lanes (H == 0 collisions) re-verify on the host scalar path
-    exactly like the single-device dispatch (ops/ecdsa_batch.BatchHandle).
+    bool. Pads B up to n_chips * 1024-lane shards with poisoned lanes
+    (each shard's records packed straight into its staging); degenerate
+    lanes (H == 0 collisions) re-verify on the host scalar path exactly
+    like the single-device dispatch (ops/ecdsa_batch.BatchHandle).
     ``kernel`` overrides the -ecdsakernel selection for this call (None =
     active); ``devices`` is the layout (default ``chip_mesh(n_chips)``)."""
     from ..ops import ecdsa_batch
@@ -219,33 +333,28 @@ def verify_batch_sharded(records, n_chips: int,
             and ecdsa_batch.glv_dev_enabled()):
         # fused device-decompose program: the host pack is the w4 byte
         # emit, each chip splits its own scalar shard in-kernel
-        t0 = time.perf_counter()
-        arrays = [np.asarray(a)
-                  for a in pack_records_w4_bytes(records, bucket)]
-        note("pack", t0)
+        fill = _pack_rows(pack_records_w4_bytes, records, per_chip)
         dw.note_transfer("sig_shard", "h2d",
-                         sum(int(a.nbytes) for a in arrays))
+                         bucket * sum(ecdsa_batch.W4_BYTES_ROW))
         # mesh-width x bucket is the compiled-shape signature; no budget —
         # virtual meshes legitimately sweep 1/2/4/8
         with dw.program("sig_shard_glv_dev").dispatch((bucket, n_chips)):
-            ok, degen, _fails = _sharded_glv_dev(*arrays, devices=devices)
+            ok, degen, _fails = _verify_shards("glv_dev", fill, "pack",
+                                               per_chip, devices)
     elif kern == "glv" and ecdsa_batch.glv_enabled():
-        t0 = time.perf_counter()
-        arrays = [np.asarray(a) for a in pack_records_glv(records, bucket)]
-        note("pack", t0)
+        fill = _pack_rows(pack_records_glv, records, per_chip)
         dw.note_transfer("sig_shard", "h2d",
-                         sum(int(a.nbytes) for a in arrays))
+                         bucket * sum(ecdsa_batch.GLV_ROW))
         with dw.program("sig_shard_glv").dispatch((bucket, n_chips)):
-            ok, degen, _fails = _sharded_glv(*arrays, devices=devices)
+            ok, degen, _fails = _verify_shards("glv", fill, "pack",
+                                               per_chip, devices)
     else:
-        t0 = time.perf_counter()
-        arrays = [np.asarray(a)
-                  for a in pack_records_w4_bytes(records, bucket)]
-        note("pack", t0)
+        fill = _pack_rows(pack_records_w4_bytes, records, per_chip)
         dw.note_transfer("sig_shard", "h2d",
-                         sum(int(a.nbytes) for a in arrays))
+                         bucket * sum(ecdsa_batch.W4_BYTES_ROW))
         with dw.program("sig_shard_w4").dispatch((bucket, n_chips)):
-            ok, degen, _fails = _sharded_w4(*arrays, devices=devices)
+            ok, degen, _fails = _verify_shards("w4", fill, "pack",
+                                               per_chip, devices)
     out = np.asarray(ok)[:n].copy()
     degen = np.asarray(degen)[:n]
     t0 = time.perf_counter()

@@ -905,17 +905,84 @@ def glv_decompose_phase(clock_hz: float, seed: int = 11,
     if err:
         raise AssertionError(f"glv_decompose: differs from the plain "
                              f"version by {err}")
+    B = len(ks)
+    parts = {}
     if dev.type == "cuda":
         ms = time_cuda(lambda: S.glv_decompose_device_batch(km), 20)
+        parts = decompose_parts(km, clock_hz)
     else:
         ms = time_once(lambda: S.glv_decompose_device_batch(km), dev)[0]
-    B = len(ks)
     ops_ms = B * 2 * 324 / (SMS * IMAD_PER_SM_CLK * clock_hz) * 1e3
     bytes_ms = B * (32 + 2 * 16 + 2) / HBM_BYTES_S * 1e3
     return {"B": B, "edges": len(GLV_EDGES), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
+            "parts": parts, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "max_abs_err": err, "launches": launches}
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Median host microseconds of one call of ``fn`` (no synchronise:
+    the host's own cost)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e6
+
+
+def decompose_parts(km, clock_hz: float) -> dict:
+    """The glv_decompose wrapper's parts on ``km``, host clock: the typed
+    entry's lookup as the wrapper makes it (kept) and as every call made
+    it before (a walk of the libraries, a new typing); the four output
+    allocations the wrapper made before beside its one now; the C entry's
+    launch alone; the whole wrapper; and the kernel's device time behind
+    a spin (time_device, as K1 is timed)."""
+    import ctypes
+
+    import torch
+
+    from bitcoincashplus_tpu_torch.ops import cuda_build
+    from bitcoincashplus_tpu_torch.ops import secp256k1 as S
+
+    B, dev = km.shape[0], km.device
+    argtypes = S._DECOMPOSE_ARGS
+
+    def walk():
+        for lib in cuda_build.kernel_libs():
+            if hasattr(lib, "glv_decompose"):
+                fn = getattr(lib, "glv_decompose")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                return fn
+
+    def four():
+        m1 = torch.empty(B, 16, dtype=torch.uint8, device=dev)
+        torch.empty_like(m1)
+        n1 = torch.empty(B, dtype=torch.uint8, device=dev)
+        torch.empty_like(n1)
+
+    out = torch.empty(34 * B, dtype=torch.uint8, device=dev)
+    fn = cuda_build.entry("glv_decompose", argtypes)
+    o, k = out.data_ptr(), km.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launch = lambda: fn(k, o, o + 32 * B, o + 16 * B, o + 33 * B, B, stream)
+    parts = {
+        "entry_kept_us": host_us(lambda: cuda_build.entry("glv_decompose",
+                                                          argtypes)),
+        "entry_walk_us": host_us(walk),
+        "alloc_four_us": host_us(four),
+        "alloc_one_us": host_us(lambda: torch.empty(34 * B,
+                                                    dtype=torch.uint8,
+                                                    device=dev)),
+        "launch_us": host_us(launch),
+        "wrapper_us": host_us(lambda: S.glv_decompose_device_batch(km)),
+    }
+    torch.cuda.synchronize()
+    parts["kernel_ms"] = time_device(launch, clock_hz)
+    parts["wrapper_device_ms"] = time_device(
+        lambda: S.glv_decompose_device_batch(km), clock_hz)
+    return parts
 
 
 def field_selftest(seed: int = 7) -> dict:
@@ -3547,9 +3614,15 @@ def node_phase(chain_dir: str, sigs: int) -> dict:
 # the sharded signature batch: dispatch_packed's slice, one 8192-lane bucket
 # at width 1 and four of 2048 on [cuda:0] * 4
 SHARD_SIGS = 8190
+# the reuse checks' smaller batches: the same lanes a shard as SHARD_SIGS
+# at widths 1 and 4 (8,192 and 2,048), and fewer (2,048 and 1,024)
+SHARD_SAME, SHARD_FEWER = 7200, 2000
 # the sharded MSM's inputs: msm_inputs at the buckets of 2,046 and 8,190
 # Schnorr signatures (2n + 1 terms)
 SHARD_MSM = ((4096, 2046), (16384, 8190))
+# the reuse check's smaller MSM batch: 4,096 and 1,024 terms a shard at
+# widths 1 and 4, as SHARD_MSM's first size
+SHARD_MSM_SMALL = 3000
 SHARD_REPS = 10
 # the sharded sweep's wrapping window: 2^30 nonces from 2^32 - 2^28 (at
 # width 4, stripes of 2^28: the first below 2^32, the rest past the wrap)
@@ -3728,6 +3801,36 @@ def shard_sig_phase(clock_hz: float, n: int = SHARD_SIGS, seed: int = 1300,
                 f"{key} one launch a shard": counts["launch_shapes"]
                 == card(dev, [[entry, per, width]]),
                 f"{key} no fallback": not any(_fallbacks().values())})
+    # the kept staging reused: at each layout and kernel, another batch,
+    # a smaller one at the same lanes a shard, one at fewer lanes, then
+    # the first again, each call's verdicts its own oracle's; and the
+    # planes of the smaller batch after the larger one at the same lanes:
+    # its padding lanes report nothing, its fails are its own
+    other = shard_records(n, seed + 1)
+    other_oracle = host_oracle(other)
+    seq = ((other, other_oracle), (other[:SHARD_SAME], other_oracle[
+        :SHARD_SAME]), (recs[:SHARD_FEWER], oracle[:SHARD_FEWER]),
+        (recs, oracle))
+    for kern, name in (("glv", "glv_dev"), ("w4", "w4")):
+        for lname, lay in lays.items():
+            width, per = len(lay), shard_bucket(n, len(lay))
+            checks[f"reuse {kern} {lname} verdicts"] = all(
+                np.array_equal(sig_shard.verify_batch_sharded(
+                    r, width, kernel=kern, devices=lay), want)
+                for r, want in seq)
+            sig_shard.verify_batch_sharded(other, width, kernel=kern,
+                                           devices=lay)
+            small = other[:SHARD_SAME]
+            ok, degen, fails = sig_shard._verify_shards(
+                name, sig_shard._pack_rows(E.pack_records_w4_bytes, small,
+                                           per), "pack", per, lay)
+            qinf = E.pack_records_w4_bytes(small, per * width)[4]
+            k = len(small)
+            checks[f"reuse {kern} {lname} padding planes"] = (
+                not ok[k:].any() and not degen[k:].any()
+                and fails == int(((~ok | degen) & (qinf == 0)).sum())
+                and np.array_equal(np.where(degen[:k], other_oracle[:k],
+                                            ok[:k]), other_oracle[:k]))
     # the host-split route: the shard-level function itself
     host = {}
     for lname, lay in lays.items():
@@ -3794,9 +3897,48 @@ def shard_sig_phase(clock_hz: float, n: int = SHARD_SIGS, seed: int = 1300,
         checks[f"{name} unsharded equal to the plain version"] = same
         progs[name] = {"entry": entry, "replaces": replaces, "B": B,
                        "ms": ms, "parts": parts, "plain_ms": plain_ms,
+                       "wrapper": wrapper,
                        **verify_bound(entry, arrays, B, clock_hz)}
+    # a batch of four cards' waves: the records tiled four times (8,192
+    # lanes a shard at width 4), at each layout of width 4, beside the
+    # unsharded wrapper on one card at the same lanes
+    recs4, oracle4 = recs * 4, np.tile(oracle, 4)
+    lays4 = {k: v for k, v in lays.items() if len(v) == 4}
+    wave = {"n": len(recs4), "runs": [], "programs": {}}
+    for kern, entry in (("glv", "glv_dev_verify"), ("w4", "w4_verify_bytes")):
+        for lname, lay in lays4.items():
+            per = shard_bucket(len(recs4), 4)
+            _zero_counts()
+            got = sig_shard.verify_batch_sharded(recs4, 4, kernel=kern,
+                                                 devices=lay)
+            counts = _read_counts()
+            key = f"four waves {kern} {lname}"
+            wave["runs"].append({"kernel": kern, "layout": lname,
+                                 "launch_shapes": counts["launch_shapes"]})
+            checks.update({
+                f"{key} oracle": np.array_equal(got, oracle4),
+                f"{key} one launch a shard": counts["launch_shapes"]
+                == card(dev, [[entry, per, 4]]),
+                f"{key} no fallback": not any(_fallbacks().values())})
+    B4 = shard_bucket(len(recs4), 1)
+    for name, entry, pack, _replaces in SHARD_VERIFY:
+        packer = (E.pack_records_glv if pack == "glv"
+                  else E.pack_records_w4_bytes)
+        shard_fn = getattr(sig_shard, "_" + name)
+        wrapper = progs[name]["wrapper"]
+        packed = packer(recs4, shard_bucket(len(recs4), 4) * 4)
+        ms = {lname: wall_ms(lambda lay=lay: shard_fn(*packed, devices=lay),
+                             dev, reps) for lname, lay in lays4.items()}
+        one = packer(recs4, B4)
+        ms["unsharded"] = wall_ms(lambda: [t.cpu() for t in wrapper(*[
+            torch.from_numpy(a).to(dev) for a in one])], dev, reps)
+        wave["programs"][name] = {"B": B4, "ms": ms, "parts": {
+            lname: call_parts(lambda lay=lay: shard_fn(*packed, devices=lay),
+                              reps) for lname, lay in lays4.items()}}
+    for r in progs.values():
+        r.pop("wrapper")
     return {"n": n, "runs": runs, "host_split": host, "programs": progs,
-            "checks": checks}
+            "four_waves": wave, "checks": checks}
 
 
 def _terms(xm, ym, inf8, km) -> list:
@@ -3858,6 +4000,8 @@ def shard_msm_phase(clock_hz: float, sizes=SHARD_MSM, seed: int = 1400,
         for zero_sum in (False, True):
             xm, ym, inf8, km, want = msm_inputs(M, seed + M, zero_sum)
             terms = _terms(xm, ym, inf8, km)
+            if M == sizes[0][0] and not zero_sum:
+                first = terms
             one = int(S.schnorr_msm_is_infinity(
                 *[torch.from_numpy(a).to(dev) for a in (xm, ym, inf8, km)])[0])
             for lname, lay in lays.items():
@@ -3881,6 +4025,37 @@ def shard_msm_phase(clock_hz: float, sizes=SHARD_MSM, seed: int = 1400,
                     f"{key} unsharded": int(got) == one,
                     f"{key} one launch a shard": counts["launch_shapes"]
                     == card(dev, [["msm_partial", per, width]])})
+    # the kept staging reused: after the larger sizes, a smaller batch at
+    # each layout (SHARD_MSM_SMALL terms of known logs: the first size's
+    # lanes a shard at widths 1 and 4), its sum nonzero and zero, the
+    # verdict the host's; then its shards' partials, each the host's sum
+    # of that shard's terms (the last shard's padding at infinity)
+    for zero_sum in (False, True):
+        terms, logs = logged_terms(SHARD_MSM_SMALL, seed + 7)
+        if zero_sum:
+            rest = sum(k * lg for (_, _, k), lg in zip(terms[:-1], logs))
+            x, y, _k = terms[-1]
+            terms[-1] = (x, y, -rest * pow(logs[-1], -1, O.N) % O.N)
+        want = logged_sum(terms, logs)
+        for lname, lay in lays.items():
+            checks[f"reuse zero={zero_sum} {lname} verdict"] = (
+                sig_shard.msm_is_infinity_sharded(terms, len(lay),
+                                                  devices=lay)
+                is (want is None) is zero_sum)
+    for lname, lay in lays.items():
+        width = len(lay)
+        per = E._msm_bucket_for(-(-SHARD_MSM_SMALL // width))
+        sig_shard.msm_is_infinity_sharded(first, width, devices=lay)
+        parts = sig_shard._msm_shards(sig_shard._pack_rows(
+            E._msm_pack, terms, per), "pack", per, lay)
+        good = True
+        for c, ((x, y, z), inf) in enumerate(parts):
+            want = logged_sum(terms[c * per:(c + 1) * per],
+                              logs[c * per:(c + 1) * per])
+            zi = pow(z, -1, O.P) if z else 0
+            good &= (inf if want is None else not inf and (
+                x * zi * zi % O.P, y * zi ** 3 % O.P) == want)
+        checks[f"reuse {lname} shard partials"] = good
     # shards of padding alone: 100 terms at width 4 (bucket 64 a shard)
     terms, logs = logged_terms(100, seed)
     four = list(lays.values())[-1]
@@ -3928,7 +4103,41 @@ def shard_msm_phase(clock_hz: float, sizes=SHARD_MSM, seed: int = 1400,
            "imads_by_layout": {k: sum(w["imads"] for w in v)
                                for k, v in work.items()},
            **bound(imads, nbytes, clock_hz)}
-    return {"runs": runs, "padding": pad, "program": row, "checks": checks}
+    # a batch of four cards' waves: the last size's terms tiled four times
+    # (4 S is zero exactly where S is), at each layout of width 4: one
+    # launch a shard at the ladder's top bucket, the verdict the host's;
+    # the shard-level call timed (one card takes the batch only as four
+    # shards: the ladder stops at the last size)
+    M = sizes[-1][0]
+    lays4 = {k: v for k, v in lays.items() if len(v) == 4}
+    wave = {"terms": None, "ms": {}, "parts": {}, "launches": 0}
+    for zero_sum in (False, True):
+        xm, ym, inf8, km, want = msm_inputs(M, seed + M, zero_sum)
+        terms4 = _terms(xm, ym, inf8, km) * 4
+        wave["terms"] = len(terms4)
+        per = E._msm_bucket_for(-(-len(terms4) // 4))
+        for lname, lay in lays4.items():
+            _zero_counts()
+            got = sig_shard.msm_is_infinity_sharded(terms4, 4, devices=lay)
+            counts = _read_counts()
+            wave["launches"] += sum(n for _e, _M, n in
+                                    counts["launch_shapes"])
+            key = f"four waves zero={zero_sum} {lname}"
+            checks.update({
+                f"{key} host": got is (want is None) is zero_sum,
+                f"{key} one launch a shard": counts["launch_shapes"]
+                == card(dev, [["msm_partial", per, 4]]),
+                f"{key} no fallback": not any(_fallbacks().values())})
+    packed = E._msm_pack(terms4, per * 4)
+    wave["M"] = per * 4
+    for lname, lay in lays4.items():
+        wave["ms"][lname] = wall_ms(lambda lay=lay: sig_shard._sharded_msm(
+            *packed, devices=lay), dev, reps)
+        wave["parts"][lname] = call_parts(
+            lambda lay=lay: sig_shard.msm_is_infinity_sharded(
+                terms4, 4, devices=lay), reps)
+    return {"runs": runs, "padding": pad, "program": row,
+            "four_waves": wave, "checks": checks}
 
 
 def diff1_header(lo: int, hi: int, seed: int, tile: int,
@@ -4283,6 +4492,13 @@ def shard_phases(clock_hz: float, ops_exact: int) -> tuple:
         for lname, p in r["parts"].items():
             log(f"{name} breakdown at {lname} (ms, medians): "
                 f"{parts_text(p)}")
+    for name, r in ss["four_waves"]["programs"].items():
+        log(f"{name} four waves ({ss['four_waves']['n']} sigs, {r['B']} "
+            f"lanes): call wall "
+            f"{', '.join(f'{k} {v:.3f}' for k, v in r['ms'].items())} ms")
+        for lname, p in r["parts"].items():
+            log(f"{name} four waves breakdown at {lname} (ms, medians): "
+                f"{parts_text(p)}")
     log(f"phase 7a wall {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     sm = shard_msm_phase(clock_hz)
@@ -4295,6 +4511,13 @@ def shard_phases(clock_hz: float, ops_exact: int) -> tuple:
     for lname, p in r["parts"].items():
         log(f"sharded_msm breakdown at {lname} (msm_is_infinity_sharded, "
             f"{r['terms']} terms; ms, medians): {parts_text(p)}")
+    w = sm["four_waves"]
+    log(f"sharded_msm four waves ({w['terms']} terms, bucket {w['M']}): "
+        f"call wall {', '.join(f'{k} {v:.3f}' for k, v in w['ms'].items())}"
+        f" ms")
+    for lname, p in w["parts"].items():
+        log(f"sharded_msm four waves breakdown at {lname} "
+            f"(msm_is_infinity_sharded; ms, medians): {parts_text(p)}")
     log(f"phase 7b wall {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     sn = shard_nonce_phase(clock_hz, ops_exact)
@@ -4331,7 +4554,7 @@ def shard_kernel_rows(ss: dict, sm: dict, sn: dict) -> list:
                   "glv_pair.cu" if S.launch_shape(r["B"], S.GLV_LAUNCH)[0]
                   > S.GLV_PAIR else "glv_verify.cu")
         launches = sum(x["launches"].get(entry, 0) for x in ss["runs"]) + \
-            sum(n for h in ss["host_split"].values()
+            sum(n for h in [*ss["host_split"].values(), *ss["four_waves"]["runs"]]
                 for e, _B, n in h["launch_shapes"] if e == entry)
         rows.append({
             "name": name, "route": "cuda",
@@ -4340,18 +4563,22 @@ def shard_kernel_rows(ss: dict, sm: dict, sn: dict) -> list:
             "max_abs_err": 0, "ms": r["ms"][lay1], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "entry": entry, "B": r["B"],
-            "ms_4_streams": r["ms"][lay4], "unsharded_ms": r["ms"]["unsharded"]})
+            "ms_4_streams": r["ms"][lay4], "unsharded_ms": r["ms"]["unsharded"],
+            "parts": r["parts"],
+            "four_waves": ss["four_waves"]["programs"][name]})
     r = sm["program"]
     rows.append({
         "name": "sharded_msm", "route": "cuda",
         "source": "bitcoincashplus_tpu_torch/csrc/msm.cu",
         "replaces": "bitcoincashplus_tpu/parallel/sig_shard.py:165",
         "launches": sum(n for x in sm["runs"]
-                        for _e, _M, n in x["launch_shapes"]),
+                        for _e, _M, n in x["launch_shapes"])
+        + sm["four_waves"]["launches"],
         "max_abs_err": 0, "ms": r["ms"][lay1], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "entry": "msm_partial", "M": r["M"],
-        "ms_4_streams": r["ms"][lay4], "unsharded_ms": r["ms"]["unsharded"]})
+        "ms_4_streams": r["ms"][lay4], "unsharded_ms": r["ms"]["unsharded"],
+        "parts": r["parts"], "four_waves": sm["four_waves"]})
     r = sn["program"]
     rows.append({
         "name": "sharded_sweep", "route": "cuda",
@@ -4579,6 +4806,9 @@ def main() -> int:
     decomp = glv_decompose_phase(clock_hz)
     log(f"glv_decompose: {json.dumps(decomp)}; every lane equal to the "
         f"Python split and to the plain version")
+    log(f"glv_decompose wrapper at {decomp['B']} scalars: {decomp['ms']:.4f} "
+        f"ms a call by events around 20 calls; its parts "
+        f"{json.dumps(decomp['parts'])}")
     # 2c. the Schnorr MSM (K9) at every bucket, against its plain version
     # and the host's sum
     fe_cycles = chains["cycles_a_step"]["fe_mul 1 warp(s)/scheduler"]
@@ -4995,7 +5225,7 @@ def main() -> int:
         "replaces": replaces["glv_decompose"],
         "launches": path_launches["glv_decompose"],
         **{k: decomp[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "B")},
+                                  "bound_ms", "bound_by", "B", "parts")},
         "library_ms": None})
     # each sweep entry at a compared launch shape of the main path:
     # sweep_h7 at the resident segment (its most launched), pallas at its

@@ -246,9 +246,13 @@ def _replacing(*pairs):
 
 
 # the sharded entry points: a layout (devices=) in place of the mesh, and
-# one launch a shard in place of the shard_map program; the rest (the
-# stripe budget, the buckets, the packs, the rung choice, the host
-# re-check, the MSM fold) is the reference's
+# one launch a shard in place of the shard_map program; the signature and
+# MSM entries pack each shard's records (terms) straight into its kept
+# staging (parallel/sig_shard._pack_rows, _verify_shards, _msm_shards) in
+# place of one packed batch, and read the clock for the breakdown of a
+# call (parallel/mesh.note); the rest (the stripe budget, the buckets, the
+# packs, the rung choice, the host re-check, the MSM fold) is the
+# reference's
 _LAYOUT_SWEEP = _replacing(
     ("return_per_chip: bool=False):",
      "return_per_chip: bool=False, devices=None):"),
@@ -266,20 +270,38 @@ _LAYOUT_SWEEP = _replacing(
      "jnp.uint32(n_tiles), tile=tile, n_chips=n_chips)",
      "_sharded_sweep(midstate, tail, tgt, np.uint32(start_nonce), "
      "np.uint32(n_tiles), tile=tile, devices=devices)"))
+_PACKED = ("        arrays = [np.asarray(a) for a in {}(records, bucket)]\n"
+           "        dw.note_transfer('sig_shard', 'h2d', sum((int(a.nbytes) "
+           "for a in arrays)))\n        with dw.program('sig_shard_{}')")
+_STAGED = ("        fill = _pack_rows({}, records, per_chip)\n"
+           "        dw.note_transfer('sig_shard', 'h2d', bucket * "
+           "sum(ecdsa_batch.{}))\n        with dw.program('sig_shard_{}')")
 _LAYOUT_VERIFY = _replacing(
     ("kernel: str | None=None) -> np.ndarray:",
      "kernel: str | None=None, devices=None) -> np.ndarray:"),
     ("    n = len(records)\n",
      "    devices = layout(n_chips, devices)\n    n = len(records)\n"),
+    *[(_PACKED.format(pack, name), _STAGED.format(pack, row, name))
+      for pack, row, name in (
+          ("pack_records_w4_bytes", "W4_BYTES_ROW", "glv_dev"),
+          ("pack_records_glv", "GLV_ROW", "glv"),
+          ("pack_records_w4_bytes", "W4_BYTES_ROW", "w4"))],
     ("jax.block_until_ready(_sharded_glv_dev_jit(*arrays, n_chips=n_chips))",
-     "_sharded_glv_dev(*arrays, devices=devices)"),
+     "_verify_shards('glv_dev', fill, 'pack', per_chip, devices)"),
     ("jax.block_until_ready(_sharded_glv_jit(*arrays, n_chips=n_chips))",
-     "_sharded_glv(*arrays, devices=devices)"),
+     "_verify_shards('glv', fill, 'pack', per_chip, devices)"),
     ("jax.block_until_ready(_sharded_w4_jit(*arrays, n_chips=n_chips, "
      "interpret=_use_interpret(n_chips)))",
-     "_sharded_w4(*arrays, devices=devices)"))
+     "_verify_shards('w4', fill, 'pack', per_chip, devices)"),
+    ("    idxs = np.nonzero(degen)[0]\n",
+     "    t0 = time.perf_counter()\n    idxs = np.nonzero(degen)[0]\n"),
+    ("        out[idxs] = _verify_cpu([records[i] for i in idxs])\n",
+     "        out[idxs] = _verify_cpu([records[i] for i in idxs])\n"
+     "    note('recheck', t0)\n"))
 # and the MSM partials as the port's ((X, Y, Z), inf) ints
-# (ops/secp256k1.msm_partial_point) in place of the packed limb column
+# (ops/secp256k1.msm_partial_point) in place of the packed limb column,
+# each made affine with pow(z, -1, p) (the same inverse, without the
+# exponentiation)
 _LAYOUT_MSM = _replacing(
     ("(terms, n_chips: int) -> bool:",
      "(terms, n_chips: int, devices=None) -> bool:"),
@@ -287,14 +309,70 @@ _LAYOUT_MSM = _replacing(
     ("    per_chip = _msm_bucket_for(",
      "    devices = layout(n_chips, devices)\n"
      "    per_chip = _msm_bucket_for("),
+    ("    arrays = [np.asarray(a) for a in _msm_pack(terms, bucket)]\n"
+     "    dw.note_transfer('sig_shard', 'h2d', sum((int(a.nbytes) for a in "
+     "arrays)))\n",
+     "    fill = _pack_rows(_msm_pack, terms, per_chip)\n"
+     "    dw.note_transfer('sig_shard', 'h2d', bucket * sum(E.MSM_ROW))\n"),
     ("np.asarray(jax.block_until_ready(_sharded_msm_jit(*arrays, "
-     "n_chips=n_chips)))", "_sharded_msm(*arrays, devices=devices)"),
+     "n_chips=n_chips)))", "_msm_shards(fill, 'pack', per_chip, devices)"),
+    ("    acc = None\n", "    t0 = time.perf_counter()\n    acc = None\n"),
+    ("pow(z, oracle.P - 2, oracle.P)", "pow(z, -1, oracle.P)"),
+    ("    return acc is None\n", "    note('fold', t0)\n    return acc is None\n"),
     ("        col = out[:, c]\n        if col[3 * N_LIMBS]:\n",
      "        (x, y, z), inf = out[c]\n        if inf:\n"),
     ("        x = from_limbs_np(col[0:N_LIMBS]) % oracle.P\n"
      "        y = from_limbs_np(col[N_LIMBS:2 * N_LIMBS]) % oracle.P\n"
      "        z = from_limbs_np(col[2 * N_LIMBS:3 * N_LIMBS]) % oracle.P\n",
      ""))
+# the packs fill kept buffers in place when given them (``into``: the
+# sharded path's staging; _zeros and _ones zero or fill the i-th one) in
+# place of new arrays
+def _into(*allocs):
+    """Pairs turning each new array of a pack into its i-th ``into``
+    buffer: (old line start, new line start) pairs."""
+    return [(f"{name} = np.{fill}({shape}, np.uint8)\n",
+             f"{name} = _{fill}(into, {i}, {shape})\n")
+            for name, fill, shape, i in allocs]
+
+
+_PACK_INTO_W4 = _replacing(
+    ("bucket: int):", "bucket: int, into=None):"),
+    ("    def mat(blob: bytes) -> np.ndarray:\n"
+     "        out = np.zeros((bucket, 32), np.uint8)\n",
+     "    def mat(blob: bytes, i: int) -> np.ndarray:\n"
+     "        out = _zeros(into, i, (bucket, 32))\n"),
+    *_into(("u1m", "zeros", "(bucket, 32)", 0),
+           ("u2m", "zeros", "(bucket, 32)", 1),
+           ("q_inf", "ones", "bucket", 4), ("wrap8", "zeros", "bucket", 7)),
+    *[(f"for rec in records)))\n    {nxt}", f"for rec in records)), {i})\n"
+       f"    {nxt}") for nxt, i in (("qyb", 2), ("r0b", 3), ("rnb", 5))],
+    ("zip(records, wraps))))\n", "zip(records, wraps))), 6)\n"))
+_PACK_INTO_GLV = _replacing(
+    ("bucket: int):", "bucket: int, into=None):"),
+    ("range_bad, bucket)\n", "range_bad, bucket, into)\n"))
+_PACK_INTO_GLV_PARTS = _replacing(
+    ("bucket: int):", "bucket: int, into=None):"),
+    *_into(("d1m", "zeros", "(bucket, 16)", 0),
+           ("d2m", "zeros", "(bucket, 16)", 1),
+           ("s1m", "zeros", "(bucket, 16)", 4),
+           ("s2m", "zeros", "(bucket, 16)", 5),
+           ("sg1", "zeros", "bucket", 2), ("sg2", "zeros", "bucket", 3),
+           ("ydiff", "zeros", "bucket", 6),
+           ("qyb", "zeros", "(bucket, 32)", 8),
+           ("q_inf", "ones", "bucket", 9), ("wrap8", "zeros", "bucket", 12)),
+    ("    def pad(mat: np.ndarray) -> np.ndarray:\n"
+     "        out = np.zeros((bucket, 32), np.uint8)\n",
+     "    def pad(mat: np.ndarray, i: int) -> np.ndarray:\n"
+     "        out = _zeros(into, i, (bucket, 32))\n"),
+    ("pad(qx_bytes)", "pad(qx_bytes, 7)"), ("pad(r_bytes)", "pad(r_bytes, 10)"),
+    ("pad(rn_bytes)", "pad(rn_bytes, 11)"))
+_PACK_INTO_MSM = _replacing(
+    ("bucket: int):", "bucket: int, into=None):"),
+    *_into(("xm", "zeros", "(bucket, 32)", 0),
+           ("ym", "zeros", "(bucket, 32)", 1),
+           ("km", "zeros", "(bucket, 32)", 3), ("inf8", "ones", "bucket", 2)))
+
 # a layout is a list of torch devices, not a jax Mesh
 _LAYOUT_MESH = _replacing(
     (") -> Mesh:", ") -> list:"),
@@ -315,6 +393,10 @@ FUNCTION_DIFFERENCES = {
     ("ops/ecdsa_batch", "_dispatch_schnorr"):
         _open_breaker_oracle_only_for_injected_faults,
     ("ops/ecdsa_batch", "pallas_enabled"): _no_pallas_latch,
+    ("ops/ecdsa_batch", "pack_records_w4_bytes"): _PACK_INTO_W4,
+    ("ops/ecdsa_batch", "pack_records_glv"): _PACK_INTO_GLV,
+    ("ops/ecdsa_batch", "_glv_pack_parts"): _PACK_INTO_GLV_PARTS,
+    ("ops/ecdsa_batch", "_msm_pack"): _PACK_INTO_MSM,
 }
 
 
@@ -329,11 +411,10 @@ FUNCTION_DIFFERENCES = {
 FUNCTION_COPIES = [
     ("ops/dispatch", "merkle_root"), ("ops/dispatch", "_merkle_device_min"),
 ] + [("ops/ecdsa_batch", name) for name in (
-    "active_kernel", "set_kernel", "_glv_pack_parts", "pack_records_glv",
-    "pack_records_w4_bytes", "pack_records", "dispatch_packed",
+    "active_kernel", "set_kernel", "pack_records", "dispatch_packed",
     "_kat_records", "records_to_blobs",
     "_schnorr_kat_records", "_msm_rng", "_schnorr_precheck",
-    "_msm_bucket_for", "_msm_pack", "_msm_verify_records",
+    "_msm_bucket_for", "_msm_verify_records",
     "_schnorr_oracle")] + [("ops/secp256k1", name) for name in (
         "_round_div", "glv_split", "glv_decompose", "_np_limbs16",
         "_np_const16", "_np_mul", "_np_norm", "_np_sub", "_np_ge", "_np_dbl",
