@@ -496,24 +496,56 @@ def team_threads(team: int) -> int:
     return 2 * (team - GLV_PAIR) if team > GLV_PAIR else team
 
 
+def verify_plan(name: str, inputs: list, out: torch.Tensor,
+                team: int | None = None, block: int | None = None):
+    """A prepared launch of the verify entry ``name`` (w4_verify_bytes,
+    w4_verify_planes, glv_dev_verify, glv_verify): ``inputs`` contiguous
+    CUDA tensors of B lanes in the entry's order, ``out`` a (2, B) uint8
+    tensor on their card that the kernel writes (ok, degen) to. The typed
+    entry, the pointers and the launch shape (team and block default to
+    ECDSA_LAUNCH's or GLV_LAUNCH's; a GLV entry takes one launch a
+    GLV_SPLIT lanes) are fixed here. Returns ``launch(stream)``, which
+    launches on the CUDA stream handle ``stream`` and counts each launch:
+    a caller that keeps its buffers (parallel/sig_shard) pays the launch
+    alone."""
+    B = out.shape[1]
+    glv = name.startswith("glv")
+    calls = []
+    for s in range(0, B, GLV_SPLIT if glv else max(B, 1)):
+        n = min(GLV_SPLIT, B - s) if glv else B
+        t, b = (team, block) if team is not None else launch_shape(
+            n, GLV_LAUNCH if glv else ECDSA_LAUNCH)
+        ptrs = [x[s:].data_ptr() for x in inputs]
+        if glv:
+            entry, code = (name + "_pair", t - GLV_PAIR) if t > GLV_PAIR \
+                else (name, t)
+            ptrs.append(_comb_on(out.device, "words").data_ptr())
+            argtypes = [ctypes.c_void_p] * (len(inputs) + 3) \
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        else:
+            entry, code, argtypes = name, t, _ENTRY_ARGS
+        calls.append((cuda_build.entry(entry, argtypes), entry, n,
+                      (*ptrs, out[0, s:].data_ptr(), out[1, s:].data_ptr(),
+                       n, code, b)))
+
+    def launch(stream: int) -> None:
+        for fn, entry, n, args in calls:
+            cuda_build.check_launch(entry, fn(*args, stream))
+            LAUNCHES[name] += 1
+            LAUNCH_SHAPES[(name, n)] = LAUNCH_SHAPES.get((name, n), 0) + 1
+    return launch
+
+
 def _launch(name: str, inputs: list, B: int, team: int | None = None,
             block: int | None = None) -> tuple:
     """Launch one entry on the current stream: inputs are contiguous CUDA
     tensors; allocates and returns the (ok, degen) uint8 outputs. team and
     block default to launch_shape(B)."""
-    if team is None:
-        team, block = launch_shape(B)
-    fn = cuda_build.entry(name, _ENTRY_ARGS)
     dev = inputs[0].device
-    ok = torch.empty(B, dtype=torch.uint8, device=dev)
-    degen = torch.empty(B, dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(*[t.data_ptr() for t in inputs], ok.data_ptr(), degen.data_ptr(),
-            B, team, block, stream)
-    cuda_build.check_launch(name, rc)
-    LAUNCHES[name] += 1
-    LAUNCH_SHAPES[(name, B)] = LAUNCH_SHAPES.get((name, B), 0) + 1
-    return ok, degen
+    out = torch.empty(2, B, dtype=torch.uint8, device=dev)
+    verify_plan(name, inputs, out, team, block)(
+        torch.cuda.current_stream(dev).cuda_stream)
+    return out[0], out[1]
 
 
 def _check(tensors: list, device, shapes: list, dtypes: tuple) -> None:
@@ -1154,34 +1186,20 @@ GLV_SPLIT = 16384
 
 def _glv_launch(name: str, inputs: list, B: int, team: int | None = None,
                 block: int | None = None) -> torch.Tensor:
-    """Launch one GLV verify entry on the current stream: contiguous CUDA
-    inputs, then the comb; returns the (2, B) uint8 (ok, degen) rows. team
-    (a GLV_TEAMS code) and block default to GLV_LAUNCH's."""
-    if team is None:
-        team, block = launch_shape(B, GLV_LAUNCH)
-    entry, code = (name + "_pair", team - GLV_PAIR) if team > GLV_PAIR \
-        else (name, team)
-    fn = cuda_build.entry(entry, [ctypes.c_void_p] * (len(inputs) + 3)
-                          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    """Launch one GLV verify entry on the current stream (one launch a
+    GLV_SPLIT lanes): contiguous CUDA inputs, then the comb; returns the
+    (2, B) uint8 (ok, degen) rows. team (a GLV_TEAMS code) and block
+    default to GLV_LAUNCH's."""
     dev = inputs[0].device
     out = torch.empty(2, B, dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(*[t.data_ptr() for t in inputs],
-            _comb_on(dev, "words").data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), B, code, block, stream)
-    cuda_build.check_launch(entry, rc)
-    LAUNCHES[name] += 1
-    LAUNCH_SHAPES[(name, B)] = LAUNCH_SHAPES.get((name, B), 0) + 1
+    verify_plan(name, inputs, out, team, block)(
+        torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
 def _glv_split_launches(name: str, inputs: list) -> tuple:
     """One launch per GLV_SPLIT lanes; (ok, degen) (B,) bool."""
-    B = inputs[0].shape[0]
-    outs = [_glv_launch(name, [t[s:s + GLV_SPLIT] for t in inputs],
-                        min(GLV_SPLIT, B - s))
-            for s in range(0, B, GLV_SPLIT)]
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    out = _glv_launch(name, inputs, inputs[0].shape[0])
     return out[0].view(torch.bool), out[1].view(torch.bool)
 
 
@@ -1601,22 +1619,36 @@ def _msm_scratch(dev, M: int, stream) -> list:
     return scratch
 
 
-def _msm_launch(name: str, ts: list) -> torch.Tensor:
-    """Launch csrc/msm.cu's whole MSM (entry msm_run: the split, the bucket
-    walk, the merge levels, the reduction, the combination) on the current
-    stream; returns its 25 result words (int32) on the card. ``ts`` are
-    _msm_tensors' contiguous inputs (inf8 uint8); the scratch is kept per
-    (card, M, stream)."""
+def msm_plan(name: str, ts: list, scratch: list, out: torch.Tensor):
+    """A prepared launch of csrc/msm.cu's whole MSM (entry msm_run: the
+    split, the bucket walk, the merge levels, the reduction, the
+    combination), counted as ``name`` (msm or msm_partial): ``ts``
+    _msm_tensors' contiguous CUDA inputs (inf8 uint8), ``scratch`` the
+    msm_scratch_words buffers and ``out`` the (25,) int32 result words,
+    all on one card. Returns ``launch(stream)``, which launches on the
+    CUDA stream handle ``stream``; scratch is the caller's to keep apart
+    from any launch on another stream."""
     M = ts[0].shape[0]
-    dev = ts[0].device
     fn = cuda_build.entry("msm_run", _MSM_RUN_ARGS)
+    args = (*[t.data_ptr() for t in ts + scratch], out.data_ptr(), M,
+            msm_streams(M))
+
+    def launch(stream: int) -> None:
+        cuda_build.check_launch("msm_run", fn(*args, stream))
+        LAUNCHES[name] += 1
+        LAUNCH_SHAPES[(name, M)] = LAUNCH_SHAPES.get((name, M), 0) + 1
+    return launch
+
+
+def _msm_launch(name: str, ts: list) -> torch.Tensor:
+    """Launch the whole MSM (msm_plan) on the current stream; returns its
+    25 result words (int32) on the card. The scratch is kept per (card, M,
+    stream)."""
+    dev = ts[0].device
     stream = torch.cuda.current_stream(dev)
     out = torch.empty(MSM_WORDS, dtype=torch.int32, device=dev)
-    rc = fn(*[t.data_ptr() for t in ts + _msm_scratch(dev, M, stream)],
-            out.data_ptr(), M, msm_streams(M), stream.cuda_stream)
-    cuda_build.check_launch("msm_run", rc)
-    LAUNCHES[name] += 1
-    LAUNCH_SHAPES[(name, M)] = LAUNCH_SHAPES.get((name, M), 0) + 1
+    msm_plan(name, ts, _msm_scratch(dev, ts[0].shape[0], stream),
+             out)(stream.cuda_stream)
     return out
 
 

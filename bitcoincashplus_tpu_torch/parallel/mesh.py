@@ -131,10 +131,19 @@ def shard_streams(devices: list) -> list:
     return out
 
 
-def _on_stream(stream, width: int):
-    """The shard's stream made current while its work is queued; at width
-    1 nothing to switch (the work queues on the current stream)."""
-    return torch.cuda.stream(stream) if width > 1 else contextlib.nullcontext()
+def _current_streams(devices: list) -> list:
+    """The current stream of each card of a layout, the current card's
+    last: setting them back (``_set_streams``) puts back each card's
+    stream and, with the last, the current card."""
+    cards = {d.index: d for d in devices}
+    return [torch.cuda.current_stream(d) for d in cards.values()] + [
+        torch.cuda.current_stream()]
+
+
+def _set_streams(streams: list) -> None:
+    """Make each stream current on its card (and its card current)."""
+    for s in streams:
+        torch.cuda.set_stream(s)
 
 
 def _same(dev, *args):
@@ -175,21 +184,26 @@ def run_shards(devices: list, launch, shards: list, stage=_same,
         return [collect(dev, launch(dev, *stage(dev, *args)))
                 for dev, args in zip(devices, shards)]
     lanes = shard_streams(devices)
+    # at width 1 the work queues on the current stream; else each shard's
+    # stream is made current while its work is queued, and the cards'
+    # current streams are put back after
     width = len(devices)
+    back = _current_streams(devices) if width > 1 else []
+    use = _set_streams if width > 1 else (lambda streams: None)
     try:
         t0 = time.perf_counter()
         staged = []
         for dev, (s, _ev), args in zip(devices, lanes, shards):
-            with _on_stream(s, width):
-                staged.append(stage(dev, *args))
+            use([s])
+            staged.append(stage(dev, *args))
         t0 = note("stage", t0)
         outs = []
         for dev, (s, ev), args in zip(devices, lanes, staged):
-            with _on_stream(s, width):
-                with kernel_span(dev):
-                    out = launch(dev, *args)
-                outs.append(collect(dev, out))
-                ev.record(s)
+            use([s])
+            with kernel_span(dev):
+                out = launch(dev, *args)
+            outs.append(collect(dev, out))
+            ev.record(s)
         t0 = note("submit", t0)
         for _s, ev in lanes:
             ev.synchronize()
@@ -199,5 +213,6 @@ def run_shards(devices: list, launch, shards: list, stage=_same,
             s.synchronize()
         raise
     finally:
+        _set_streams(back)
         spans_done()
     return outs

@@ -38,6 +38,7 @@ unsharded call does.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -58,15 +59,18 @@ _CHIP_BUCKET = 1024
 # {1, 2, 4, 8}, so the signature space is 6 x 4.
 _PW_SHARD_MSM = _dw.program("sig_shard_msm", shape_budget=24)
 
-# The sharded programs: the per-shard wrapper's name in ops/secp256k1 (or
-# None: the MSM's launch), the bytes of a lane of each of its inputs in
-# argument order (the pack's row widths: 32 or 16 a (lanes, w) matrix, 1 a
-# (lanes,) plane), and the index of its q_inf plane
+# The sharded programs: the per-shard wrapper's name in ops/secp256k1 (None
+# for the MSM: its launch is msm_partial_launch) and its kernel entry, the
+# bytes of a lane of each of its inputs in argument order (the pack's row
+# widths: 32 or 16 a (lanes, w) matrix, 1 a (lanes,) plane), and the index
+# of its q_inf plane
 _PROGRAMS = {
-    "glv_dev": ("ecdsa_verify_batch_glv_dev", E.W4_BYTES_ROW, 4),
-    "glv": ("ecdsa_verify_batch_glv", E.GLV_ROW, 9),
-    "w4": ("ecdsa_verify_batch_pallas_w4_bytes", E.W4_BYTES_ROW, 4),
-    "msm": (None, E.MSM_ROW, 2),
+    "glv_dev": ("ecdsa_verify_batch_glv_dev", "glv_dev_verify",
+                E.W4_BYTES_ROW, 4),
+    "glv": ("ecdsa_verify_batch_glv", "glv_verify", E.GLV_ROW, 9),
+    "w4": ("ecdsa_verify_batch_pallas_w4_bytes", "w4_verify_bytes",
+           E.W4_BYTES_ROW, 4),
+    "msm": (None, "msm_partial", E.MSM_ROW, 2),
 }
 _STAGING: dict = {}
 
@@ -84,44 +88,62 @@ def _views(buf, row: tuple, per: int) -> list:
 
 class _Staging:
     """The kept buffers of one sharded program at one (lanes a shard,
-    layout): a pinned host buffer (width, shard bytes) that the pack fills
-    (``inputs[c]``: shard c's arrays, numpy views); on each shard's card a
-    buffer of a shard's bytes (``args[c]``: the kernel's inputs, views of
-    it); a pinned host buffer of the shards' outputs (``out``). Made once:
-    with it the GLV comb is uploaded to each card and that card's current
+    layout), made once:
+    - ``host``: a pinned host buffer (width, shard bytes) that the pack
+      fills, each shard's arrays back to back (``inputs[c]``, numpy views);
+    - on each shard's card, a buffer of a shard's bytes (``args[c]``: the
+      kernel's inputs, views of it) and the kernel's outputs (``dev_out``:
+      the (2, lanes) verdict and degen rows, or the MSM's 25 words and
+      scratch);
+    - ``plans[c]``: the shard's prepared launch on them
+      (ops/secp256k1.verify_plan, msm_plan);
+    - ``out``: a pinned host buffer of the shards' outputs.
+    With it the GLV comb is uploaded to each card and that card's current
     stream synchronised, so the shards' streams read a finished comb. On a
-    CPU layout the host buffer holds the inputs, and nothing is pinned.
-    ``lock``: one call at a time refills the buffers."""
+    CPU layout the host buffer holds the inputs, nothing is pinned, and
+    each shard runs its wrapper's plain version. ``lock``: one call at a
+    time refills the buffers."""
 
-    def __init__(self, name: str, per: int, devices: list, out_shape: tuple,
-                 out_dtype):
-        _wrapper, row, _qinf = _PROGRAMS[name]
+    def __init__(self, name: str, per: int, devices: list):
+        _wrapper, entry, row, _qinf = _PROGRAMS[name]
         width, nbytes = len(devices), per * sum(row)
         cuda = devices[0].type == "cuda"
+        out_shape, out_dtype = ((S.MSM_WORDS,), torch.int32) \
+            if name == "msm" else ((2, per), torch.uint8)
         self.lock = threading.Lock()
         self.host = torch.empty((width, nbytes), dtype=torch.uint8,
                                 pin_memory=cuda)
         host = self.host.numpy()
         self.inputs = [_views(host[c], row, per) for c in range(width)]
-        dev_bufs = ([torch.empty(nbytes, dtype=torch.uint8, device=d)
-                     for d in devices] if cuda else list(self.host))
-        self.dev = dev_bufs
-        self.args = [_views(b, row, per) for b in dev_bufs]
         self.out = torch.empty((width, *out_shape), dtype=out_dtype,
                                pin_memory=cuda)
-        if cuda and name in ("glv", "glv_dev"):
+        if not cuda:
+            self.args = [_views(b, row, per) for b in self.host]
+            return
+        if name in ("glv", "glv_dev"):
             for d in {str(d): d for d in devices}.values():
                 S._comb_on(d, "words")
                 torch.cuda.current_stream(d).synchronize()
+        self.dev = [torch.empty(nbytes, dtype=torch.uint8, device=d)
+                    for d in devices]
+        self.args = [_views(b, row, per) for b in self.dev]
+        self.dev_out = [torch.empty(out_shape, dtype=out_dtype, device=d)
+                        for d in devices]
+        if name == "msm":
+            self.plans = [S.msm_plan(entry, args, [
+                torch.empty(n, dtype=torch.int32, device=d)
+                for n in S.msm_scratch_words(per).values()], out)
+                for d, args, out in zip(devices, self.args, self.dev_out)]
+        else:
+            self.plans = [S.verify_plan(entry, args, out)
+                          for args, out in zip(self.args, self.dev_out)]
 
 
-def _staging(name: str, per: int, devices: list, out_shape: tuple,
-             out_dtype) -> _Staging:
+def _staging(name: str, per: int, devices: list) -> _Staging:
     key = (name, per, tuple(devices))
     st = _STAGING.get(key)
     if st is None:
-        st = _STAGING[key] = _Staging(name, per, devices, out_shape,
-                                      out_dtype)
+        st = _STAGING[key] = _Staging(name, per, devices)
     return st
 
 
@@ -141,48 +163,64 @@ def _pack_rows(pack, items, per: int):
     return lambda c, dst: pack(items[c * per:(c + 1) * per], per, into=dst)
 
 
-def _run_staged(st: _Staging, fill, part: str, devices: list, launch,
-                collect) -> list:
-    """Fill every shard's staging (host seconds noted as ``part``), then
-    mesh.run_shards: each shard's rows copied to its card in one copy,
-    ``launch(dev, c)`` on views of them, ``collect(dev, c, out)``."""
-    t0 = time.perf_counter()
-    for c in range(len(devices)):
-        fill(c, st.inputs[c])
-    note(part, t0)
+@contextlib.contextmanager
+def _run_staged(name: str, fill, part: str, per: int, devices: list,
+                plain):
+    """One launch of program ``name`` a shard, as a context holding the
+    staging's lock: fill every shard's staging (``fill(c, arrays)``; host
+    seconds noted as ``part``), then mesh.run_shards: on CUDA each shard's
+    rows to its card in one copy, its prepared launch, its outputs back in
+    one copy into the pinned ``out`` (the shard's output None); on the CPU
+    ``plain(st, c, args)`` (the shard's output). Yields (staging,
+    outputs) for the fold to read."""
+    st = _staging(name, per, devices)
+    with st.lock:
+        t0 = time.perf_counter()
+        for c in range(len(devices)):
+            fill(c, st.inputs[c])
+        note(part, t0)
+        shards = [(c,) for c in range(len(devices))]
+        if devices[0].type == "cpu":
+            yield st, run_shards(devices, lambda dev, c: plain(
+                st, c, st.args[c]), shards)
+            return
 
-    def stage(dev, c):
-        if dev.type == "cuda":
+        def stage(dev, c):
             st.dev[c].copy_(st.host[c], non_blocking=True)
-        return (c,)
+            return (c,)
 
-    return run_shards(devices, lambda dev, c: (c, launch(dev, c)),
-                      [(c,) for c in range(len(devices))], stage,
-                      lambda dev, out: collect(dev, *out))
+        def launch(dev, c):
+            st.plans[c](torch.cuda.current_stream(dev).cuda_stream)
+            return c
+
+        def collect(dev, c):
+            st.out[c].copy_(st.dev_out[c], non_blocking=True)
+
+        yield st, run_shards(devices, launch, shards, stage, collect)
+
+
+def _plain_verify(wrapper: str):
+    """A shard's plain verify on the CPU, its planes into ``out``."""
+    def plain(st, c, args):
+        ok, degen = getattr(S, wrapper)(*args)
+        st.out[c, 0].copy_(ok)
+        st.out[c, 1].copy_(degen)
+    return plain
 
 
 def _verify_shards(name: str, fill, part: str, per: int,
                    devices: list) -> tuple:
-    """One launch of program ``name``'s per-shard wrapper a shard, on the
+    """One launch of program ``name``'s per-shard entry a shard, on the
     rows ``fill(c, arrays)`` writes into shard c's staging; the folded
     (ok, degen, fails): planes in row order, fails summed over the
     shards."""
-    wrapper, _row, qinf = _PROGRAMS[name]
-    verify = getattr(S, wrapper)
-    st = _staging(name, per, devices, (2, per), torch.bool)
-
-    def collect(dev, c, out):
-        for row, plane in zip(st.out[c], out):
-            row.copy_(plane, non_blocking=True)
-
-    with st.lock:
-        _run_staged(st, fill, part, devices,
-                    lambda dev, c: verify(*st.args[c]), collect)
+    wrapper, _entry, _row, qinf = _PROGRAMS[name]
+    with _run_staged(name, fill, part, per, devices,
+                     _plain_verify(wrapper)) as (st, _outs):
         t0 = time.perf_counter()
-        # copies: the pinned buffer is the next call's
-        planes = st.out.numpy()
-        ok = planes[:, 0].reshape(-1).copy()
-        degen = planes[:, 1].reshape(-1).copy()
+        planes = st.out.numpy().astype(bool)
+        ok = planes[:, 0].reshape(-1)
+        degen = planes[:, 1].reshape(-1)
         q_inf = np.concatenate([a[qinf] for a in st.inputs])
         # the reference's psum of each shard's failures among real lanes
         fails = int(np.sum((~ok | degen) & (q_inf == 0)))
@@ -233,18 +271,9 @@ def _msm_shards(fill, part: str, per: int, devices: list) -> list:
     """One MSM launch (K9, ``msm_partial_point``'s) a shard, on the terms
     ``fill(c, arrays)`` writes into shard c's staging. Returns each
     shard's ((X, Y, Z), inf), canonical, in shard order."""
-    st = _staging("msm", per, devices, (S.MSM_WORDS,), torch.int32)
-
-    def collect(dev, c, pending):
-        if isinstance(pending, tuple):  # the plain version's (the CPU)
-            return pending
-        st.out[c].copy_(pending, non_blocking=True)
-        return None
-
-    with st.lock:
-        outs = _run_staged(st, fill, part, devices,
-                           lambda dev, c: S.msm_partial_launch(*st.args[c]),
-                           collect)
+    with _run_staged("msm", fill, part, per, devices,
+                     lambda st, c, args: S.msm_partial_launch(*args)) \
+            as (st, outs):
         t0 = time.perf_counter()
         parts = [S._words_result(st.out[c]) if o is None else o
                  for c, o in enumerate(outs)]

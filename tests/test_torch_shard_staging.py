@@ -28,7 +28,6 @@ oracle (crypto/secp256k1.py). No JAX program is compiled. Every comparison
 is exact.
 """
 
-import contextlib
 import random
 
 import numpy as np
@@ -114,7 +113,7 @@ def test_planes_in_row_order_and_fails_through_kept_staging(monkeypatch,
     batch, in row order (each shard packed on its own equals its rows of
     the whole pack), its padding lanes report nothing, and fails is the
     psum over real lanes."""
-    wrapper, _row, qinf_at = sig_shard._PROGRAMS[name]
+    wrapper, _entry, _row, qinf_at = sig_shard._PROGRAMS[name]
 
     def model(*ts):
         ok, degen = lane_model([t.numpy() for t in ts], ts[qinf_at].numpy())
@@ -251,6 +250,58 @@ def test_four_waves_of_msm_terms_sum_to_four_times_the_sum(zero_sum):
     assert sig_shard.msm_is_infinity_sharded(terms * 4, 4) is zero_sum
 
 
+# ---- the prepared launches ---------------------------------------------------
+
+@pytest.mark.parametrize("name,lanes,launches", [
+    ("glv_dev_verify", S.GLV_SPLIT + 1024, [S.GLV_SPLIT, 1024]),
+    ("w4_verify_bytes", 2048, [2048])])
+def test_a_prepared_launch_fixes_pointers_shape_and_counts(monkeypatch, name,
+                                                           lanes, launches):
+    """verify_plan on kept buffers: the entry of the launch table's team
+    code, one launch a GLV_SPLIT lanes with each input's, the comb's and
+    the two output rows' pointers at the launch's first lane, and one
+    count a launch, on the stream the caller names. (The C entries are
+    stood in for: there is no card here.)"""
+    calls = []
+
+    def entry(ename, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            calls.append((ename, args))
+            return 0
+        return fn
+
+    comb = torch.zeros(8, dtype=torch.int32)
+    monkeypatch.setattr(cuda_build, "entry", entry)
+    monkeypatch.setattr(S, "_comb_on", lambda dev, form: comb)
+    S.reset_launch_counts()
+    row = E.W4_BYTES_ROW
+    inputs = [torch.zeros((lanes, w) if w > 1 else lanes, dtype=torch.uint8)
+              for w in row]
+    out = torch.zeros(2, lanes, dtype=torch.uint8)
+    launch = S.verify_plan(name, inputs, out)
+    assert calls == [] and S.LAUNCHES[name] == 0
+    launch(77)
+    assert [c[1][-4] for c in calls] == launches
+    start = 0
+    for (ename, args), n in zip(calls, launches):
+        team, block = S.launch_shape(n, S.GLV_LAUNCH if "glv" in name
+                                     else S.ECDSA_LAUNCH)
+        glv = "glv" in name
+        assert ename == (name + "_pair" if glv and team > S.GLV_PAIR
+                         else name)
+        ptrs = [x[start:].data_ptr() for x in inputs] + (
+            [comb.data_ptr()] if glv else []) + [
+            out[0, start:].data_ptr(), out[1, start:].data_ptr()]
+        assert list(args[:len(ptrs)]) == ptrs
+        assert args[-3:] == (team - S.GLV_PAIR if team > S.GLV_PAIR
+                             else team, block, 77)
+        start += n
+    assert S.LAUNCHES[name] == len(launches)
+    assert S.LAUNCH_SHAPES == {(name, n): launches.count(n)
+                               for n in launches}
+
+
 # ---- the shard runner --------------------------------------------------------
 
 class FakeEvent:
@@ -274,19 +325,22 @@ class FakeStream:
 
 def fake_cuda(monkeypatch, log):
     """CUDA layouts without a card: each shard's stream and event log
-    what is done with them; no stream is switched."""
+    what is done with them, and making a stream current logs it."""
     monkeypatch.setattr(mesh, "shard_streams", lambda devices: [
         (FakeStream(log, c), FakeEvent(log, c))
         for c in range(len(devices))])
-    monkeypatch.setattr(mesh, "_on_stream",
-                        lambda stream, width: contextlib.nullcontext())
+    monkeypatch.setattr(mesh, "_current_streams", lambda devices: ["back"])
+    monkeypatch.setattr(mesh, "_set_streams", lambda streams: log.extend(
+        ("current", getattr(s, "slot", s)) for s in streams))
 
 
 @pytest.mark.parametrize("width", [1, 3])
 def test_every_shard_is_queued_before_any_wait(monkeypatch, width):
     """On CUDA devices every shard's copies in are queued before any
     launch, each shard's launch, copies out and event in turn, and only
-    then the waits: nothing waits between two shards' submissions."""
+    then the waits: nothing waits between two shards' submissions. Each
+    shard's work queues with its stream current (at width 1: the current
+    stream, nothing switched), and the cards' streams are put back."""
     log = []
     fake_cuda(monkeypatch, log)
     devices = [torch.device("cuda", c) for c in range(width)]
@@ -296,16 +350,20 @@ def test_every_shard_is_queued_before_any_wait(monkeypatch, width):
         stage=lambda dev, c: log.append(("stage", c)) or (c,),
         collect=lambda dev, c: log.append(("collect", c)) or 10 * c)
     assert outs == [10 * c for c in range(width)]
-    assert log == ([("stage", c) for c in range(width)]
-                   + [e for c in range(width) for e in (
-                       ("launch", c), ("collect", c), ("record", c))]
-                   + [("wait", c) for c in range(width)])
+    switch = width > 1  # at width 1 the current stream, and no switch
+    assert log == ([e for c in range(width) for e in (
+        [("current", c)] if switch else []) + [("stage", c)]]
+        + [e for c in range(width) for e in (
+            [("current", c)] if switch else []) + [
+            ("launch", c), ("collect", c), ("record", c)]]
+        + [("wait", c) for c in range(width)]
+        + ([("current", "back")] if switch else []))
 
 
 def test_a_failed_launch_drains_every_stream(monkeypatch):
     """A launch that raises: every shard's stream is drained (no copy left
-    reading a host buffer the next call refills), and the error
-    propagates."""
+    reading a host buffer the next call refills), the cards' streams are
+    put back, and the error propagates."""
     log = []
     fake_cuda(monkeypatch, log)
 
@@ -317,7 +375,8 @@ def test_a_failed_launch_drains_every_stream(monkeypatch):
     with pytest.raises(cuda_build.KernelUnavailable):
         mesh.run_shards([torch.device("cuda", c) for c in range(3)], launch,
                         [(c,) for c in range(3)])
-    assert log[-3:] == [("drain", 0), ("drain", 1), ("drain", 2)]
+    assert log[-4:] == [("drain", 0), ("drain", 1), ("drain", 2),
+                        ("current", "back")]
     assert not any(e[0] == "wait" for e in log)
 
 
