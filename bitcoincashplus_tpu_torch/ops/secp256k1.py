@@ -507,7 +507,7 @@ def verify_plan(name: str, inputs: list, out: torch.Tensor,
     GLV_SPLIT lanes) are fixed here. Returns ``launch(stream)``, which
     launches on the CUDA stream handle ``stream`` and counts each launch:
     a caller that keeps its buffers (parallel/sig_shard) pays the launch
-    alone."""
+    alone. The launch holds the tensors whose pointers it took."""
     B = out.shape[1]
     glv = name.startswith("glv")
     calls = []
@@ -528,7 +528,7 @@ def verify_plan(name: str, inputs: list, out: torch.Tensor,
                       (*ptrs, out[0, s:].data_ptr(), out[1, s:].data_ptr(),
                        n, code, b)))
 
-    def launch(stream: int) -> None:
+    def launch(stream: int, _keep=(inputs, out)) -> None:
         for fn, entry, n, args in calls:
             cuda_build.check_launch(entry, fn(*args, stream))
             LAUNCHES[name] += 1
@@ -1619,22 +1619,37 @@ def _msm_scratch(dev, M: int, stream) -> list:
     return scratch
 
 
-def msm_plan(name: str, ts: list, scratch: list, out: torch.Tensor):
+def msm_plan(name: str, ts: list, scratch: list, out: torch.Tensor,
+             graph: bool = False):
     """A prepared launch of csrc/msm.cu's whole MSM (entry msm_run: the
     split, the bucket walk, the merge levels, the reduction, the
     combination), counted as ``name`` (msm or msm_partial): ``ts``
     _msm_tensors' contiguous CUDA inputs (inf8 uint8), ``scratch`` the
     msm_scratch_words buffers and ``out`` the (25,) int32 result words,
     all on one card. Returns ``launch(stream)``, which launches on the
-    CUDA stream handle ``stream``; scratch is the caller's to keep apart
-    from any launch on another stream."""
+    CUDA stream handle ``stream`` and holds the tensors whose pointers it
+    took; scratch is the caller's to keep apart from any launch on another
+    stream. With ``graph``, msm_run's launches (five kernels and log2 K
+    merges) are captured once into a CUDA graph (after an uncounted run
+    that loads the kernels), and ``launch`` replays it on the current
+    stream, which must be ``stream``: one submission instead of a dozen
+    (the sharded MSM, whose shards queue from one host thread)."""
     M = ts[0].shape[0]
     fn = cuda_build.entry("msm_run", _MSM_RUN_ARGS)
     args = (*[t.data_ptr() for t in ts + scratch], out.data_ptr(), M,
             msm_streams(M))
+    run = lambda stream: cuda_build.check_launch("msm_run", fn(*args, stream))
+    if graph:
+        with torch.cuda.device(out.device):
+            run(torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                run(torch.cuda.current_stream().cuda_stream)
+        run = lambda stream: g.replay()
 
-    def launch(stream: int) -> None:
-        cuda_build.check_launch("msm_run", fn(*args, stream))
+    def launch(stream: int, _keep=(ts, scratch, out)) -> None:
+        run(stream)
         LAUNCHES[name] += 1
         LAUNCH_SHAPES[(name, M)] = LAUNCH_SHAPES.get((name, M), 0) + 1
     return launch

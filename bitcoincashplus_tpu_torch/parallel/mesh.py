@@ -170,10 +170,10 @@ def run_shards(devices: list, launch, shards: list, stage=_same,
     returned once every shard's event has completed.
 
     On the CPU the three run one after another, shard by shard. On CUDA
-    devices shard i queues on ``shard_streams(devices)[i]``: at width 1
-    the device's current stream (no device or stream switch, and the wait
-    is on the shard's event, not on the device); else a stream a (card,
-    slot). A shard's work reads only what it stages from the host and
+    devices shard i queues on ``shard_streams(devices)[i]``, made current
+    while it queues: at width 1 the card's current stream (on the current
+    card nothing is switched, and the wait is on the shard's event, not on
+    the card); else a stream a (card, slot). A shard's work reads only what it stages from the host and
     what was made once and synchronised (the GLV comb), so its stream
     waits on no other. On an error every stream is drained before it is
     raised: no copy is left reading a host buffer that the next call
@@ -184,12 +184,14 @@ def run_shards(devices: list, launch, shards: list, stage=_same,
         return [collect(dev, launch(dev, *stage(dev, *args)))
                 for dev, args in zip(devices, shards)]
     lanes = shard_streams(devices)
-    # at width 1 the work queues on the current stream; else each shard's
-    # stream is made current while its work is queued, and the cards'
-    # current streams are put back after
-    width = len(devices)
-    back = _current_streams(devices) if width > 1 else []
-    use = _set_streams if width > 1 else (lambda streams: None)
+    # a layout of the current card alone queues on its current stream;
+    # else each shard's stream is made current while its work is queued
+    # (a launch may read the current stream: a CUDA graph's replay), and
+    # the cards' current streams are put back after
+    switch = len(devices) > 1 or \
+        devices[0].index != torch.cuda.current_device()
+    back = _current_streams(devices) if switch else []
+    use = _set_streams if switch else (lambda streams: None)
     try:
         t0 = time.perf_counter()
         staged = []

@@ -130,13 +130,23 @@ class _Staging:
         self.dev_out = [torch.empty(out_shape, dtype=out_dtype, device=d)
                         for d in devices]
         if name == "msm":
+            # each shard's MSM as one CUDA graph: the shards' dozen
+            # launches each would otherwise queue one after another from
+            # this thread
             self.plans = [S.msm_plan(entry, args, [
                 torch.empty(n, dtype=torch.int32, device=d)
-                for n in S.msm_scratch_words(per).values()], out)
+                for n in S.msm_scratch_words(per).values()], out, graph=True)
                 for d, args, out in zip(devices, self.args, self.dev_out)]
         else:
-            self.plans = [S.verify_plan(entry, args, out)
-                          for args, out in zip(self.args, self.dev_out)]
+            # the launch shape of the lanes the shard's card holds in a
+            # call (the launch tables' rows are each the fastest for that
+            # many lanes on a card): k shards on one card run as one
+            # launch of k times the lanes would
+            table = S.GLV_LAUNCH if entry.startswith("glv") \
+                else S.ECDSA_LAUNCH
+            self.plans = [S.verify_plan(entry, args, out, *S.launch_shape(
+                per * devices.count(d), table))
+                for d, args, out in zip(devices, self.args, self.dev_out)]
 
 
 def _staging(name: str, per: int, devices: list) -> _Staging:

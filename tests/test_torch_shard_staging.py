@@ -330,6 +330,7 @@ def fake_cuda(monkeypatch, log):
         (FakeStream(log, c), FakeEvent(log, c))
         for c in range(len(devices))])
     monkeypatch.setattr(mesh, "_current_streams", lambda devices: ["back"])
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(mesh, "_set_streams", lambda streams: log.extend(
         ("current", getattr(s, "slot", s)) for s in streams))
 
