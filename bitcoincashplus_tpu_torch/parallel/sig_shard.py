@@ -138,15 +138,8 @@ class _Staging:
                 for n in S.msm_scratch_words(per).values()], out, graph=True)
                 for d, args, out in zip(devices, self.args, self.dev_out)]
         else:
-            # the launch shape of the lanes the shard's card holds in a
-            # call (the launch tables' rows are each the fastest for that
-            # many lanes on a card): k shards on one card run as one
-            # launch of k times the lanes would
-            table = S.GLV_LAUNCH if entry.startswith("glv") \
-                else S.ECDSA_LAUNCH
-            self.plans = [S.verify_plan(entry, args, out, *S.launch_shape(
-                per * devices.count(d), table))
-                for d, args, out in zip(devices, self.args, self.dev_out)]
+            self.plans = [S.verify_plan(entry, args, out)
+                          for args, out in zip(self.args, self.dev_out)]
 
 
 def _staging(name: str, per: int, devices: list) -> _Staging:

@@ -55,7 +55,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              glv_decompose) through its wrapper on GLV_EDGES and 4096
              seeded scalars (counts zeroed just before, read just after):
              every lane equal to the Python glv_decompose, the whole equal
-             to the plain version.
+             to the plain version; the wrapper's parts timed (the typed
+             entry's lookup, its allocation beside the four it made
+             before, the launch alone, the whole call, and the kernel's
+             device time behind a spin).
 2c. msm    — the Schnorr MSM (csrc/msm.cu, K9: the GLV split, the
              bucket walk, the merges, the bit-sum reduction, the window
              tree) at every bucket 64 .. 16384 on seeded terms of known
@@ -214,11 +217,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              a shard at the shard's bucket (8192, or 2048 a shard), no
              other launch, no fallback; verdicts equal to the oracle's and
              to the unsharded dispatch_batch's. The GLV host-split route
-             through _sharded_glv at both layouts. Then, for each sharded
-             program (glv_dev_verify, glv_verify, w4_verify_bytes a shard)
-             on the same packed arrays: the call's wall at each layout
-             beside the unsharded wrapper's, the plain version's wall and
-             the bound.
+             through _sharded_glv at both layouts. The kept staging
+             reused at each layout and kernel: another batch, a smaller
+             one at the same lanes a shard, one at fewer, the first
+             again, each call's verdicts its own oracle's, and the
+             smaller batch's planes (its padding lanes report nothing).
+             Then, for each sharded program (glv_dev_verify, glv_verify,
+             w4_verify_bytes a shard) on the same packed arrays: the
+             call's wall at each layout beside the unsharded wrapper's,
+             the breakdown of the main path's call (parallel/mesh.PARTS:
+             pack, stage, submit, wait, copy-back, fold, re-check; the
+             shards' kernel spans from CUDA events), the plain version's
+             wall and the bound. A batch of four cards' waves (the
+             records tiled four times, 32,760) at each layout of width 4:
+             verdicts, one launch a shard, no fallback, and each
+             program's wall and breakdown beside the unsharded wrapper's
+             at 32,768 lanes on one card.
 7b. shard msm — msm_is_infinity_sharded on the terms of msm_inputs at
              4,096 and 16,384 (the buckets of 2,046 and 8,190 Schnorr
              signatures), sums nonzero and zero, at both layouts: one
@@ -226,7 +240,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              schnorr_msm_is_infinity's and the host's sum; 100 terms on
              four shards, two of them padding alone (at infinity, skipped
              by the fold), each partial the host's sum of its shard; the
-             walls beside the unsharded msm_partial_point's, plain, bound.
+             kept staging reused (a smaller batch of known logs after the
+             larger ones, its sum nonzero and zero, then its shards'
+             partials); the walls beside the unsharded
+             msm_partial_point's, the breakdown, plain, bound; the last
+             size's terms tiled four times (57,344 terms, 16,384 a shard)
+             at each layout of width 4: the verdict the host's, one
+             launch a shard, the wall and the breakdown.
 7c. shard nonces — sweep_header_sharded on a testnet difficulty-1
              header whose first hit lies in [2^24, 2^27), at both layouts:
              from nonce 0 the nonce equals the exact engine's first hit;
