@@ -105,7 +105,7 @@ class _Staging:
     time refills the buffers."""
 
     def __init__(self, name: str, per: int, devices: list):
-        _wrapper, entry, row, _qinf = _PROGRAMS[name]
+        _wrapper, entry, row, qinf = _PROGRAMS[name]
         width, nbytes = len(devices), per * sum(row)
         cuda = devices[0].type == "cuda"
         out_shape, out_dtype = ((S.MSM_WORDS,), torch.int32) \
@@ -132,7 +132,11 @@ class _Staging:
         if name == "msm":
             # each shard's MSM as one CUDA graph: the shards' dozen
             # launches each would otherwise queue one after another from
-            # this thread
+            # this thread. The graph's first, uncounted run reads the
+            # buffers as they are: a shard of padding alone
+            for b, args in zip(self.dev, self.args):
+                b.zero_()
+                args[qinf].fill_(1)
             self.plans = [S.msm_plan(entry, args, [
                 torch.empty(n, dtype=torch.int32, device=d)
                 for n in S.msm_scratch_words(per).values()], out, graph=True)
@@ -152,11 +156,12 @@ def _staging(name: str, per: int, devices: list) -> _Staging:
 
 def _copy_rows(arrays, per: int):
     """A staging fill from packed (B, ...) arrays: shard c's rows copied
-    into its buffers."""
+    into its buffers (torch's copy, which spreads a large one over the
+    intra-op threads)."""
     def fill(c: int, dst: list) -> None:
         for d, a in zip(dst, arrays):
-            np.copyto(d, np.asarray(a)[c * per:(c + 1) * per],
-                      casting="unsafe")
+            torch.from_numpy(d).copy_(torch.from_numpy(
+                np.asarray(a)[c * per:(c + 1) * per]))
     return fill
 
 
