@@ -1619,8 +1619,7 @@ def _msm_scratch(dev, M: int, stream) -> list:
     return scratch
 
 
-def msm_plan(name: str, ts: list, scratch: list, out: torch.Tensor,
-             graph: bool = False):
+def msm_plan(name: str, ts: list, scratch: list, out: torch.Tensor):
     """A prepared launch of csrc/msm.cu's whole MSM (entry msm_run: the
     split, the bucket walk, the merge levels, the reduction, the
     combination), counted as ``name`` (msm or msm_partial): ``ts``
@@ -1629,27 +1628,14 @@ def msm_plan(name: str, ts: list, scratch: list, out: torch.Tensor,
     all on one card. Returns ``launch(stream)``, which launches on the
     CUDA stream handle ``stream`` and holds the tensors whose pointers it
     took; scratch is the caller's to keep apart from any launch on another
-    stream. With ``graph``, msm_run's launches (five kernels and log2 K
-    merges) are captured once into a CUDA graph (after an uncounted run
-    that loads the kernels), and ``launch`` replays it on the current
-    stream, which must be ``stream``: one submission instead of a dozen
-    (the sharded MSM, whose shards queue from one host thread)."""
+    stream."""
     M = ts[0].shape[0]
     fn = cuda_build.entry("msm_run", _MSM_RUN_ARGS)
     args = (*[t.data_ptr() for t in ts + scratch], out.data_ptr(), M,
             msm_streams(M))
-    run = lambda stream: cuda_build.check_launch("msm_run", fn(*args, stream))
-    if graph:
-        with torch.cuda.device(out.device):
-            run(torch.cuda.current_stream().cuda_stream)
-            torch.cuda.current_stream().synchronize()
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                run(torch.cuda.current_stream().cuda_stream)
-        run = lambda stream: g.replay()
 
     def launch(stream: int, _keep=(ts, scratch, out)) -> None:
-        run(stream)
+        cuda_build.check_launch("msm_run", fn(*args, stream))
         LAUNCHES[name] += 1
         LAUNCH_SHAPES[(name, M)] = LAUNCH_SHAPES.get((name, M), 0) + 1
     return launch
@@ -1667,26 +1653,16 @@ def _msm_launch(name: str, ts: list) -> torch.Tensor:
     return out
 
 
-def _msm_start(name: str, xm, ym, inf8, km):
-    """Launch the MSM (CUDA: its result words, still in flight) or run
-    its plain version (CPU: the result itself)."""
+def _msm_result(name: str, xm, ym, inf8, km) -> tuple:
+    """The MSM's ((X, Y, Z), inf): the kernel's launch, read back (CUDA),
+    or its plain version (CPU)."""
     ts = _msm_tensors(xm, ym, inf8, km)
     dev = ts[0].device
     if dev.type == "cpu":
         return _point_result(msm_accumulate_plain(*ts))
     if dev.type != "cuda":
         raise KernelUnavailable(f"no MSM kernel for device {dev}")
-    return _msm_launch(name, ts)
-
-
-def msm_partial_result(pending) -> tuple:
-    """What ``msm_partial_launch`` returned -> ((X, Y, Z), inf); waits for
-    the card."""
-    return pending if isinstance(pending, tuple) else _words_result(pending)
-
-
-def _msm_result(name: str, xm, ym, inf8, km) -> tuple:
-    return msm_partial_result(_msm_start(name, xm, ym, inf8, km))
+    return _words_result(_msm_launch(name, ts))
 
 
 def schnorr_msm_is_infinity(xm, ym, inf8, km) -> np.ndarray:
@@ -1706,13 +1682,6 @@ def msm_partial_point(xm, ym, inf8, km) -> tuple:
     canonical, (1, 1, 0) at infinity. Inputs as
     schnorr_msm_is_infinity's."""
     return _msm_result("msm_partial", xm, ym, inf8, km)
-
-
-def msm_partial_launch(xm, ym, inf8, km):
-    """msm_partial_point's first half, for shards on streams of their own
-    (parallel/sig_shard): launches the partial sum on the current stream
-    and returns without waiting; ``msm_partial_result`` reads it."""
-    return _msm_start("msm_partial", xm, ym, inf8, km)
 
 
 # ---- the bit ladder (K8) -----------------------------------------------------

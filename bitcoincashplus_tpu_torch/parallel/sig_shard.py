@@ -59,8 +59,8 @@ _CHIP_BUCKET = 1024
 # {1, 2, 4, 8}, so the signature space is 6 x 4.
 _PW_SHARD_MSM = _dw.program("sig_shard_msm", shape_budget=24)
 
-# The sharded programs: the per-shard wrapper's name in ops/secp256k1 (None
-# for the MSM: its launch is msm_partial_launch) and its kernel entry, the
+# The sharded programs: the per-shard wrapper's name in ops/secp256k1 and
+# the entry it counts its launches under, the
 # bytes of a lane of each of its inputs in argument order (the pack's row
 # widths: 32 or 16 a (lanes, w) matrix, 1 a (lanes,) plane), and the index
 # of its q_inf plane
@@ -70,7 +70,7 @@ _PROGRAMS = {
     "glv": ("ecdsa_verify_batch_glv", "glv_verify", E.GLV_ROW, 9),
     "w4": ("ecdsa_verify_batch_pallas_w4_bytes", "w4_verify_bytes",
            E.W4_BYTES_ROW, 4),
-    "msm": (None, "msm_partial", E.MSM_ROW, 2),
+    "msm": ("msm_partial_point", "msm_partial", E.MSM_ROW, 2),
 }
 _STAGING: dict = {}
 
@@ -105,7 +105,7 @@ class _Staging:
     time refills the buffers."""
 
     def __init__(self, name: str, per: int, devices: list):
-        _wrapper, entry, row, qinf = _PROGRAMS[name]
+        _wrapper, entry, row, _qinf = _PROGRAMS[name]
         width, nbytes = len(devices), per * sum(row)
         cuda = devices[0].type == "cuda"
         out_shape, out_dtype = ((S.MSM_WORDS,), torch.int32) \
@@ -130,16 +130,9 @@ class _Staging:
         self.dev_out = [torch.empty(out_shape, dtype=out_dtype, device=d)
                         for d in devices]
         if name == "msm":
-            # each shard's MSM as one CUDA graph: the shards' dozen
-            # launches each would otherwise queue one after another from
-            # this thread. The graph's first, uncounted run reads the
-            # buffers as they are: a shard of padding alone
-            for b, args in zip(self.dev, self.args):
-                b.zero_()
-                args[qinf].fill_(1)
             self.plans = [S.msm_plan(entry, args, [
                 torch.empty(n, dtype=torch.int32, device=d)
-                for n in S.msm_scratch_words(per).values()], out, graph=True)
+                for n in S.msm_scratch_words(per).values()], out)
                 for d, args, out in zip(devices, self.args, self.dev_out)]
         else:
             self.plans = [S.verify_plan(entry, args, out)
@@ -156,12 +149,11 @@ def _staging(name: str, per: int, devices: list) -> _Staging:
 
 def _copy_rows(arrays, per: int):
     """A staging fill from packed (B, ...) arrays: shard c's rows copied
-    into its buffers (torch's copy, which spreads a large one over the
-    intra-op threads)."""
+    into its buffers."""
     def fill(c: int, dst: list) -> None:
         for d, a in zip(dst, arrays):
-            torch.from_numpy(d).copy_(torch.from_numpy(
-                np.asarray(a)[c * per:(c + 1) * per]))
+            np.copyto(d, np.asarray(a)[c * per:(c + 1) * per],
+                      casting="unsafe")
     return fill
 
 
@@ -280,7 +272,7 @@ def _msm_shards(fill, part: str, per: int, devices: list) -> list:
     ``fill(c, arrays)`` writes into shard c's staging. Returns each
     shard's ((X, Y, Z), inf), canonical, in shard order."""
     with _run_staged("msm", fill, part, per, devices,
-                     lambda st, c, args: S.msm_partial_launch(*args)) \
+                     lambda st, c, args: S.msm_partial_point(*args)) \
             as (st, outs):
         t0 = time.perf_counter()
         parts = [S._words_result(st.out[c]) if o is None else o

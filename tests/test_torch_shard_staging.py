@@ -220,7 +220,7 @@ def test_msm_staging_reused_and_padding_shards_skipped(monkeypatch):
         x, y = oracle.point_mul(s, G)
         return (x * 4 % P, y * 8 % P, 2), False
 
-    monkeypatch.setattr(S, "msm_partial_launch", model)
+    monkeypatch.setattr(S, "msm_partial_point", model)
     for m, width in ((256, 4), (100, 4), (100, 2)):
         devices = [CPU] * width
         per = E._msm_bucket_for(-(-m // width))
