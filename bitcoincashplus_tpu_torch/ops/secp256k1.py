@@ -537,15 +537,16 @@ def verify_plan(name: str, inputs: list, out: torch.Tensor,
 
 
 def _launch(name: str, inputs: list, B: int, team: int | None = None,
-            block: int | None = None) -> tuple:
-    """Launch one entry on the current stream: inputs are contiguous CUDA
-    tensors; allocates and returns the (ok, degen) uint8 outputs. team and
-    block default to launch_shape(B)."""
+            block: int | None = None) -> torch.Tensor:
+    """Launch the verify entry ``name`` on the current stream (verify_plan:
+    a GLV entry once a GLV_SPLIT lanes): inputs are contiguous CUDA
+    tensors; allocates and returns the (2, B) uint8 (ok, degen) rows.
+    team and block default to the entry's launch table."""
     dev = inputs[0].device
     out = torch.empty(2, B, dtype=torch.uint8, device=dev)
     verify_plan(name, inputs, out, team, block)(
         torch.cuda.current_stream(dev).cuda_stream)
-    return out[0], out[1]
+    return out
 
 
 def _check(tensors: list, device, shapes: list, dtypes: tuple) -> None:
@@ -1184,25 +1185,6 @@ def glv_decompose_plain(km):
 GLV_SPLIT = 16384
 
 
-def _glv_launch(name: str, inputs: list, B: int, team: int | None = None,
-                block: int | None = None) -> torch.Tensor:
-    """Launch one GLV verify entry on the current stream (one launch a
-    GLV_SPLIT lanes): contiguous CUDA inputs, then the comb; returns the
-    (2, B) uint8 (ok, degen) rows. team (a GLV_TEAMS code) and block
-    default to GLV_LAUNCH's."""
-    dev = inputs[0].device
-    out = torch.empty(2, B, dtype=torch.uint8, device=dev)
-    verify_plan(name, inputs, out, team, block)(
-        torch.cuda.current_stream(dev).cuda_stream)
-    return out
-
-
-def _glv_split_launches(name: str, inputs: list) -> tuple:
-    """One launch per GLV_SPLIT lanes; (ok, degen) (B,) bool."""
-    out = _glv_launch(name, inputs, inputs[0].shape[0])
-    return out[0].view(torch.bool), out[1].view(torch.bool)
-
-
 def _u8(tensors: list) -> list:
     return [t.to(torch.uint8).contiguous() for t in tensors]
 
@@ -1222,8 +1204,9 @@ def ecdsa_verify_batch_glv_dev(u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8):
                                     wrap8)
     if dev.type != "cuda":
         raise KernelUnavailable(f"no GLV kernel for device {dev}")
-    return _glv_split_launches("glv_dev_verify", _u8(
-        [u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8]))
+    ok, degen = _launch("glv_dev_verify", _u8(
+        [u1m, u2m, qxb, qyb, qinf8, r0b, rnb, wrap8]), B)
+    return ok.view(torch.bool), degen.view(torch.bool)
 
 
 def ecdsa_verify_batch_glv(d1m, d2m, sg1v, sg2v, s1m, s2m, ydiff8, qxb, qyb,
@@ -1246,7 +1229,8 @@ def ecdsa_verify_batch_glv(d1m, d2m, sg1v, sg2v, s1m, s2m, ydiff8, qxb, qyb,
         return glv_verify_plain(*args)
     if dev.type != "cuda":
         raise KernelUnavailable(f"no GLV kernel for device {dev}")
-    return _glv_split_launches("glv_verify", _u8(args))
+    ok, degen = _launch("glv_verify", _u8(args), B)
+    return ok.view(torch.bool), degen.view(torch.bool)
 
 
 _DECOMPOSE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]

@@ -59,11 +59,10 @@ _CHIP_BUCKET = 1024
 # {1, 2, 4, 8}, so the signature space is 6 x 4.
 _PW_SHARD_MSM = _dw.program("sig_shard_msm", shape_budget=24)
 
-# The sharded programs: the per-shard wrapper's name in ops/secp256k1 and
-# the entry it counts its launches under, the
-# bytes of a lane of each of its inputs in argument order (the pack's row
-# widths: 32 or 16 a (lanes, w) matrix, 1 a (lanes,) plane), and the index
-# of its q_inf plane
+# The sharded programs: the per-shard wrapper's name in ops/secp256k1, the
+# entry it counts its launches under, the bytes of a lane of each of its
+# inputs in argument order (the pack's row widths: 32 or 16 a (lanes, w)
+# matrix, 1 a (lanes,) plane), and the index of its q_inf plane
 _PROGRAMS = {
     "glv_dev": ("ecdsa_verify_batch_glv_dev", "glv_dev_verify",
                 E.W4_BYTES_ROW, 4),

@@ -798,7 +798,7 @@ def glv_case(entry: str, B: int, seed: int, clock_hz: float,
         for team in S.GLV_TEAMS:
             for block in W4_BLOCKS:
                 def launch(team=team, block=block):
-                    out = S._glv_launch(entry, tens, B, team, block)
+                    out = S._launch(entry, tens, B, team, block)
                     return out[0].view(torch.bool), out[1].view(torch.bool)
 
                 err, n_degen = check(*launch(),
@@ -3677,6 +3677,10 @@ def wall_ms(fn, dev, reps: int) -> float:
     return statistics.median(time_once(fn, dev)[0] for _ in range(reps))
 
 
+def staged(c: int, arrays: list) -> None:
+    """A staging fill that leaves the rows the last call staged: a sharded
+    call as the main path makes it once its pack has written them."""
+
 # the parts of a sharded call's wall (parallel/mesh.PARTS), host clock
 SHARD_PARTS = ("pack", "stage", "submit", "wait", "copy_back", "fold",
                "recheck")
@@ -3890,6 +3894,12 @@ def shard_sig_phase(clock_hz: float, n: int = SHARD_SIGS, seed: int = 1300,
             packed = packer(recs, lanes)
             ms[lname] = wall_ms(lambda lay=lay, packed=packed: shard_fn(
                 *packed, devices=lay), dev, reps)
+            # the same call from rows already staged, as the main path's
+            # pack leaves them
+            ms[f"{lname} staged"] = wall_ms(
+                lambda lay=lay, lanes=lanes: sig_shard._verify_shards(
+                    name[len("sharded_"):], staged, "stage",
+                    lanes // len(lay), lay), dev, reps)
             # the breakdown of the main path's call at this layout (the
             # host split: its pack, then the shard-level call)
             if pack == "glv":
@@ -3946,9 +3956,16 @@ def shard_sig_phase(clock_hz: float, n: int = SHARD_SIGS, seed: int = 1300,
                   else E.pack_records_w4_bytes)
         shard_fn = getattr(sig_shard, "_" + name)
         wrapper = progs[name]["wrapper"]
-        packed = packer(recs4, shard_bucket(len(recs4), 4) * 4)
-        ms = {lname: wall_ms(lambda lay=lay: shard_fn(*packed, devices=lay),
-                             dev, reps) for lname, lay in lays4.items()}
+        per4 = shard_bucket(len(recs4), 4)
+        packed = packer(recs4, per4 * 4)
+        ms = {}
+        for lname, lay in lays4.items():
+            ms[lname] = wall_ms(lambda lay=lay: shard_fn(*packed, devices=lay),
+                                dev, reps)
+            ms[f"{lname} staged"] = wall_ms(
+                lambda lay=lay: sig_shard._verify_shards(
+                    name[len("sharded_"):], staged, "stage", per4, lay),
+                dev, reps)
         one = packer(recs4, B4)
         ms["unsharded"] = wall_ms(lambda: [t.cpu() for t in wrapper(*[
             torch.from_numpy(a).to(dev) for a in one])], dev, reps)
@@ -4103,6 +4120,9 @@ def shard_msm_phase(clock_hz: float, sizes=SHARD_MSM, seed: int = 1400,
         ms[lname] = wall_ms(lambda lay=lay, packed=packed:
                             sig_shard._sharded_msm(*packed, devices=lay),
                             dev, reps)
+        ms[f"{lname} staged"] = wall_ms(
+            lambda lay=lay, per=per: sig_shard._msm_shards(
+                staged, "stage", per, lay), dev, reps)
         parts[lname] = call_parts(
             lambda lay=lay: sig_shard.msm_is_infinity_sharded(
                 terms, len(lay), devices=lay), reps)
@@ -4153,6 +4173,9 @@ def shard_msm_phase(clock_hz: float, sizes=SHARD_MSM, seed: int = 1400,
     for lname, lay in lays4.items():
         wave["ms"][lname] = wall_ms(lambda lay=lay: sig_shard._sharded_msm(
             *packed, devices=lay), dev, reps)
+        wave["ms"][f"{lname} staged"] = wall_ms(
+            lambda lay=lay: sig_shard._msm_shards(staged, "stage", per, lay),
+            dev, reps)
         wave["parts"][lname] = call_parts(
             lambda lay=lay: sig_shard.msm_is_infinity_sharded(
                 terms4, 4, devices=lay), reps)
@@ -4584,7 +4607,7 @@ def shard_kernel_rows(ss: dict, sm: dict, sn: dict) -> list:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "entry": entry, "B": r["B"],
             "ms_4_streams": r["ms"][lay4], "unsharded_ms": r["ms"]["unsharded"],
-            "parts": r["parts"],
+            "walls": r["ms"], "parts": r["parts"],
             "four_waves": ss["four_waves"]["programs"][name]})
     r = sm["program"]
     rows.append({
@@ -4598,7 +4621,8 @@ def shard_kernel_rows(ss: dict, sm: dict, sn: dict) -> list:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "entry": "msm_partial", "M": r["M"],
         "ms_4_streams": r["ms"][lay4], "unsharded_ms": r["ms"]["unsharded"],
-        "parts": r["parts"], "four_waves": sm["four_waves"]})
+        "walls": r["ms"], "parts": r["parts"],
+        "four_waves": sm["four_waves"]})
     r = sn["program"]
     rows.append({
         "name": "sharded_sweep", "route": "cuda",

@@ -402,12 +402,12 @@ FUNCTION_DIFFERENCES = {
 
 # functions of the port's own modules that keep the reference's code as it
 # is (the docstring aside): the GLV host part, what feeds the GLV legs
-# (the device split's byte emit, the known-answer lanes, the packed
-# blobs), the bit ladder's pack, the packed entry (its packed_ok rule and
-# record route), the kernel selection, the MSM rung's host part (the canary
-# records, the coefficient RNG, the prechecks, the buckets, the pack, the
-# canary gate and bisection, the per-lane oracle), and the Merkle front
-# door (its gate and CPU confirmation)
+# (the known-answer lanes, the packed blobs; the byte emits fill kept
+# buffers, a listed difference above), the bit ladder's pack, the packed
+# entry (its packed_ok rule and record route), the kernel selection, the
+# MSM rung's host part (the canary records, the coefficient RNG, the
+# prechecks, the buckets, the canary gate and bisection, the per-lane
+# oracle), and the Merkle front door (its gate and CPU confirmation)
 FUNCTION_COPIES = [
     ("ops/dispatch", "merkle_root"), ("ops/dispatch", "_merkle_device_min"),
 ] + [("ops/ecdsa_batch", name) for name in (
