@@ -1083,16 +1083,17 @@ class _MergedHandle:
 
 
 def _device_available() -> bool:
-    """True when dispatching to the port's device is worth it: CUDA when
-    a card is present. With the CPU device selected the plain PyTorch
+    """True when dispatching to the port's device is worth it: always
+    with CUDA selected — the device leg's require_device then raises
+    KernelUnavailable when no card is found, so "auto" never carries on
+    quietly on the CPU. With the CPU device selected the plain PyTorch
     version stands in for the kernel, and — as the reference does on a
     CPU backend — "auto" prefers the native C++ batch when it loaded.
     backend="device" always forces the device leg (the tests)."""
     if os.environ.get("BCP_NO_DEVICE"):
         return False
-    d = device()
-    if d.type == "cuda":
-        return torch.cuda.is_available()
+    if device().type == "cuda":
+        return True
     from .. import native
 
     return not native.available()

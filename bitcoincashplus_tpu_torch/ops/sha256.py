@@ -136,6 +136,21 @@ def sha256d_80(w20: list) -> list:
     return sha256_of_state(h)
 
 
+def header_sweep_digest(midstate8: list, tail3: list, nonces):
+    """SHA-256d digests for a nonce sweep from a precomputed midstate —
+    the reference's unhoisted form (the sweeps' hoisted arithmetic is
+    ops/sha256_sweep.sweep_digest_hoisted; the tests hold the two equal).
+
+    midstate8: the 8 SHA-256 state words after header bytes 0..63;
+    tail3: the BE words of bytes 64..75 (merkle tail, nTime, nBits), as
+    Python ints or int64 tensors; nonces: an int64 tensor of candidate
+    nonces (host byte order: the header stores them LE, so the BE message
+    word is bswap32(nonce)). Returns the 8 digest state words, each shaped
+    like ``nonces``: 2 compressions a nonce."""
+    w = [*tail3, bswap32(nonces), _PAD] + [0] * 10 + [_LEN_80B]
+    return sha256_of_state(compress(list(midstate8), w))
+
+
 def digest_to_limbs(h8: list) -> list:
     """Reinterpret digest state words as little-endian uint256 limbs
     (arith_uint256 view): limb[j] = bswap32(h[j]), limb 7 most significant."""

@@ -268,6 +268,14 @@ def sweep_digest_hoisted(pre, nonces):
     return [_add(v, s) for v, s in zip(_IV, st)]
 
 
+def sweep_h7(midstate8, tail3, nonces):
+    """Digest word h[7] of sha256d(header) for each nonce in ``nonces`` —
+    the reference's unhoisted entry: the template hoisted from the
+    midstate and tail words (``hoist_template``), then the per-nonce
+    remainder. nonces: an int64 tensor; h7 values shaped like it."""
+    return sweep_h7_hoisted(hoist_template(midstate8, tail3), nonces)
+
+
 def sweep_plain(tmpl: torch.Tensor, start: int, n_tiles: int, tile: int,
                 hit_fn) -> torch.Tensor:
     """The sequential tile loop on tmpl's device: sweep offsets

@@ -35,7 +35,9 @@ chain with breaker/KAT gating. A flush that raises anyway resolves the
 affected lanes to an error state and TxSigFuture.result() re-verifies
 those records on the CPU oracle — the verdict a caller sees is never
 dropped or fabricated, and ``-sigservice=off`` is byte-identical by
-construction (the callers run the unchanged synchronous path).
+construction (the callers run the unchanged synchronous path). A kernel
+that cannot be built or launched (KernelUnavailable) is not degraded: it
+raises to every waiter of the flush, and the service thread dies with it.
 
 Since ISSUE 11 the GLV lattice split rides the device program, so the
 host half of a flush (_dispatch_flush) is numpy byte emission only: with
@@ -169,7 +171,10 @@ class TxSigFuture:
         fabricated) — in ONE batched call, with the sigcache consulted
         first and TRUE verdicts inserted after, so futures sharing a
         deduped errored lane pay the re-verify once between them and the
-        eventual block connect still gets its cache hit."""
+        eventual block connect still gets its cache hit. A lane whose
+        flush met a kernel that cannot be built or launched
+        (KernelUnavailable) raises it here instead: that is never
+        degraded to the CPU."""
         if timeout is None:
             timeout = self._service.result_timeout
         self.wait(timeout)
@@ -178,6 +183,8 @@ class TxSigFuture:
         for i, src in enumerate(self._sources):
             if src is True:
                 out[i] = True
+            elif isinstance(src.err, ecdsa_batch.KernelUnavailable):
+                raise src.err  # a missing kernel surfaces, not degrades
             elif src.err is not None or not src.settled():
                 if not src.settled():
                     self._service._note_timeout()
@@ -413,8 +420,9 @@ class SigService:
             # the affected lanes; the thread dies loudly and later
             # submits/kicks run their flushes inline on the caller.
             # Any OTHER in-flight flush's lanes resolve to the same error
-            # NOW — waiters must fail fast to their CPU re-verify, not
-            # sit out the full result timeout on a dead thread.
+            # NOW — waiters must fail fast to their CPU re-verify (or, for
+            # a KernelUnavailable, raise it), not sit out the full result
+            # timeout on a dead thread.
             with self._cond:
                 for ent in self._inflight:
                     for lane in ent["batch"]:
@@ -536,8 +544,9 @@ class SigService:
                        "degrade to caller-side CPU re-verify",
                        type(err).__name__, str(err)[:160], len(batch))
             if isinstance(err, (NameError, AttributeError,
-                                UnboundLocalError)):
-                raise err  # programming errors must surface, not degrade
+                                UnboundLocalError,
+                                ecdsa_batch.KernelUnavailable)):
+                raise err  # programming errors, missing kernel surface
 
     # -- observability --------------------------------------------------
 

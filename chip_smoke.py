@@ -155,6 +155,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              counters (cpu_fallback_sigs, fault_fallback_sigs, every
              breaker's fallback_calls: 0 on the device runs); height,
              best block and muhash equal to -tpu=0's.
+5e. serving — the live-traffic path: mempool admission through the
+             signature service (serving/sigservice.SigService, at the
+             node's settings: 2,046 lanes, 4 ms deadline, 2 buffers,
+             backend auto), on workload/txstorm's load, counts zeroed just
+             before each run and read just after, each flush's lanes
+             recorded (FlushLog). (a) The reference's serving levels
+             (bench.py's _bench_serving_levels): light (100 transactions
+             of 2 fresh signatures, 1 submitter, closed loop), concurrent
+             (500, 8 submitters) and saturation (1,000, open loop) under
+             glv and under w4, and saturation under msm (Schnorr), each
+             beside its synchronous control (verify_batch(backend="cpu")
+             a transaction on 8 threads; under msm on 8 transactions: the
+             Python oracle): tx/s, p50 and p99 ms of both, flushes by
+             reason and lanes, launches per kernel and bucket, the card's
+             busy share estimated from them, fallbacks; every verdict the
+             host oracle's, no flush error, fault fallback, KAT failure or
+             breaker fallback, the CPU engine's signatures exactly the
+             lanes of the flushes under CPU_FLOOR, at saturation a
+             2,048-lane launch under glv and w4, K9 launched under msm.
+             (b) A storm of about 1,100 transactions (a sigchain chain's
+             fan-out outputs: 2-input P2PKH, parent -> child chains, one
+             tampered, 4 Schnorr-signed) through an in-process Node with
+             the defaults (-sigservice=on) from 8 threads, then 64, and
+             through a control Node (-sigservice=off -tpu=0): the same
+             mempool, the tampered one rejected with
+             mandatory-script-verify-flag-failed on both, a block mined
+             over the serviced mempool connected on the control with the
+             same tip; accept p50 and p99 and the service's snapshot.
+             (d) The drill: the GLV entry made unavailable
+             (ops/cuda_build.entry raising KernelUnavailable for
+             glv_dev_verify*): submit(...).result() raises it and the
+             service thread dies; restored, a new service's verdicts are
+             right.
 5b. big blocks — the validation path with the device Merkle leg: a
              regtest chain of one-input transactions
              (workload/sigchain.generate, 13,286 sigs, 4,095 a block:
@@ -265,7 +298,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              sent again, "duplicate-invalid") and of the good tip (the
              tip moves), stopprofile (the Chrome trace names a port
              kernel), one bcp_cli getblockcount, generatetoaddress 1 (the
-             h7-dispatch engine), stop (exit 0).
+             h7-dispatch engine); then live traffic (phase 5e(c)): three
+             mature coinbases fanned out by sendrawtransaction and mined,
+             64 2-input transactions spending them sent to
+             sendrawtransaction from 8 client threads, each answered with
+             its txid and in the mempool, gettpuinfo's serving section
+             read (no flush error, fault or breaker fallback); stop
+             (exit 0).
 9. report  — a JSON line of the kernel entries (the fifteen kernels and
              the five sharded programs) with launches on their paths,
              errors, times and bounds; the card's name and power limit;
@@ -3629,6 +3668,603 @@ def node_phase(chain_dir: str, sigs: int) -> dict:
     return {"runs": rows, "checks": checks}
 
 
+# ---- the live-traffic path: signature serving ---------------------------------
+
+# the reference's serving levels (bench.py's _bench_serving_levels): name,
+# transactions (2 fresh signatures each), submitters, open loop
+SERVING_LEVELS = (("light", 100, 1, False), ("concurrent", 500, 8, False),
+                  ("saturation", 1000, 1, True))
+# the node's -sigservicedeadline, -sigservicelanes and -sigservicebuffers
+# defaults (node/node.py), the service's backend there
+SERVICE_ARGS = {"deadline_ms": 4.0, "lanes": 2046, "buffers": 2}
+SYNC_WORKERS = 8        # the synchronous control's threads
+BAD_EVERY = 64          # every 64th ECDSA record checks a message it did not sign
+# the Schnorr levels: under msm a flush below CPU_FLOOR, and a bisection
+# leaf of MSM_MIN_BATCH lanes or fewer, take the per-lane Python oracle
+# (about 0.26 s a signature on the card's host), so the closed-loop
+# levels, whose flushes are a few lanes, a forged lane (its bisection
+# leaf: 8 oracle verifies) and a control over every transaction would
+# time the oracle: msm runs the saturation level on valid signatures
+# (phase 5c holds a forged lane's bisection), and its control is a sample
+# of this many transactions
+SCHNORR_LEVELS = ("saturation",)
+SCHNORR_SYNC_TXS = 8
+STORM_CHAINS = 100      # parent -> child chains in the node's storm
+STORM_SCHNORR = 4       # Schnorr-signed transactions in the node's storm
+NODE_WAVES = (("first", 8), ("second", 64))
+DAEMON_STORM_TXS = 64
+DAEMON_CLIENTS = 8
+
+
+class FlushLog:
+    """The lanes of each flush the signature service makes while in the
+    with block: ops/ecdsa_batch.dispatch_batch wrapped (the service calls
+    it through the module), recording the calls made on the service's
+    thread ("sigservice"; the flushes here hold one algorithm each, so
+    dispatch_batch does not call itself)."""
+
+    def __enter__(self):
+        import threading
+
+        from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+
+        self.E, self.real, self.lanes = E, E.dispatch_batch, []
+
+        def recorded(records, backend="auto", kernel=None):
+            if threading.current_thread().name == "sigservice":
+                self.lanes.append(len(records))
+            return self.real(records, backend=backend, kernel=kernel)
+
+        E.dispatch_batch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.E.dispatch_batch = self.real
+
+    def summary(self) -> dict:
+        from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+
+        lanes = self.lanes
+        return {"flushes": len(lanes),
+                "lanes_min": min(lanes, default=0),
+                "lanes_median": statistics.median(lanes) if lanes else 0,
+                "lanes_max": max(lanes, default=0),
+                "under_cpu_floor": sum(n < E.CPU_FLOOR for n in lanes),
+                "under_cpu_floor_lanes": sum(n for n in lanes
+                                             if n < E.CPU_FLOOR)}
+
+
+def _ms_quantile(lat: list, q: float) -> float:
+    s = sorted(lat)
+    return s[min(len(s) - 1, int(q * len(s)))] * 1e3 if s else 0.0
+
+
+def _threads(fn, n: int) -> float:
+    """Run fn(i) on n threads; the wall seconds from the first start to
+    the last join."""
+    import threading
+
+    errors = []
+
+    def run(i):
+        try:
+            fn(i)
+        except BaseException as e:  # re-raised on the caller below
+            errors.append(e)
+
+    pool = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    t0 = time.monotonic()
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(600)
+    wall = time.monotonic() - t0
+    if any(t.is_alive() for t in pool):
+        raise AssertionError("a serving thread did not finish")
+    if errors:
+        raise errors[0]
+    return wall
+
+
+def sync_control(txs: list, workers: int = SYNC_WORKERS) -> dict:
+    """The -sigservice=off shape: verify_batch(backend="cpu") a
+    transaction on ``workers`` threads (the CPU engine: the native batch
+    for ECDSA, the Python oracle for Schnorr); wall, tx/s, per-transaction
+    latency quantiles and the verdicts in order."""
+    import threading
+
+    import numpy as np
+
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+
+    out = [None] * len(txs)
+    lat = []
+    lock = threading.Lock()
+    todo = iter(range(len(txs)))
+
+    def work(_i):
+        while True:
+            with lock:
+                j = next(todo, None)
+            if j is None:
+                return
+            t0 = time.monotonic()
+            ok = E.verify_batch(txs[j], backend="cpu")
+            dt = time.monotonic() - t0
+            with lock:
+                out[j] = ok
+                lat.append(dt)
+
+    wall = _threads(work, workers)
+    return {"txs": len(txs), "wall_s": wall, "tx_per_s": len(txs) / wall,
+            "p50_ms": _ms_quantile(lat, 0.5), "p99_ms": _ms_quantile(lat, 0.99),
+            "verdicts": np.concatenate(out)}
+
+
+def serviced_run(txs: list, kernel: str, submitters: int,
+                 open_loop: bool) -> dict:
+    """The same transactions through a SigService at the node's settings
+    (backend "auto", SERVICE_ARGS) under ``kernel``: each submitter a
+    closed loop (submit, await) or, open loop, the whole share submitted,
+    then awaited; counts zeroed just before the first submit and read
+    after the last verdict, with each flush's lanes (FlushLog)."""
+    import numpy as np
+
+    from bitcoincashplus_tpu_torch.serving import SigService
+
+    svc = SigService(backend="auto", kernel=kernel, **SERVICE_ARGS).start()
+    out = [None] * len(txs)
+    lat = []
+
+    def work(i):
+        mine = range(i, len(txs), submitters)
+        if open_loop:
+            futs = [(j, time.monotonic(), svc.submit(txs[j])) for j in mine]
+            for j, t0, fut in futs:
+                out[j] = fut.result()
+                lat.append(time.monotonic() - t0)
+        else:
+            for j in mine:
+                t0 = time.monotonic()
+                out[j] = svc.submit(txs[j]).result()
+                lat.append(time.monotonic() - t0)
+
+    try:
+        _zero_counts()
+        with FlushLog() as flushes:
+            wall = _threads(work, submitters)
+        counts = _read_counts()
+        fallbacks = {**_fallbacks(),
+                     "kat_failures": counts["stats"]["kat_failures"]}
+        stats = dict(svc.stats)
+        running = svc.running()
+    finally:
+        svc.stop()
+    st = counts["stats"]
+    return {"txs": len(txs), "wall_s": wall, "tx_per_s": len(txs) / wall,
+            "p50_ms": _ms_quantile(lat, 0.5), "p99_ms": _ms_quantile(lat, 0.99),
+            "verdicts": np.concatenate(out), "running": running,
+            "flushes": flushes.summary(), "flush_lanes": flushes.lanes,
+            "service": {k: v for k, v in stats.items() if v},
+            "launches": {k: v for k, v in counts["launches"].items() if v},
+            "launch_shapes": counts["launch_shapes"],
+            "fallbacks": fallbacks,
+            "stats": {k: st[k] for k in ("dispatches", "sigs_verified",
+                                         "reject_confirm_sigs",
+                                         "degenerate_rechecks",
+                                         "schnorr_cpu_sigs", "msm_bisects",
+                                         "device_seconds", "buckets_used")}}
+
+
+def serving_level(kernel: str, level: tuple, seed: int) -> dict:
+    """One level of one kernel: fresh records (2 a transaction; ECDSA with
+    a bad lane every BAD_EVERY, or valid Schnorr signatures), the
+    synchronous control and the serviced run. The checks: every verdict
+    the host oracle's (the control's; for Schnorr the oracle's on the
+    control's sample, and True, as signed, elsewhere), no flush error,
+    fault fallback, KAT failure or breaker fallback, the CPU engine's
+    signatures exactly the lanes of the flushes under CPU_FLOOR, the
+    service alive, each expected kernel launched (K9 under msm; at
+    saturation a 2,048-lane launch under glv and w4)."""
+    import numpy as np
+
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.workload import txstorm
+
+    name, n_txs, submitters, open_loop = level
+    schnorr = kernel == "msm"
+    recs = txstorm.records(2 * n_txs, seed, schnorr=schnorr,
+                           bad_every=0 if schnorr else BAD_EVERY)
+    txs = [recs[i:i + 2] for i in range(0, len(recs), 2)]
+    sync = sync_control(txs[:SCHNORR_SYNC_TXS] if schnorr else txs)
+    svc = serviced_run(txs, kernel, submitters, open_loop)
+    got, oracle = svc.pop("verdicts"), sync.pop("verdicts")
+    sample = len(oracle)
+    shapes = {(k, B): n for k, B, n in svc["launch_shapes"]}
+    fb = svc["fallbacks"]
+    checks = {
+        "verdicts_equal_oracle": bool(np.array_equal(got[:sample], oracle)),
+        "service_running": svc["running"],
+        "no_flush_error": svc["service"].get("flush_errors", 0) == 0,
+        "no_fault_fallback": fb["fault_fallback_sigs"] == 0,
+        "no_kat_failure": fb["kat_failures"] == 0,
+        "no_breaker_fallback": fb["breaker_fallback_calls"] == 0,
+        "cpu_sigs_are_the_under_floor_flushes":
+            fb["cpu_fallback_sigs"]
+            == svc["flushes"]["under_cpu_floor_lanes"],
+        "flushes_counted": svc["flushes"]["flushes"]
+            == svc["service"].get("dispatches", 0),
+    }
+    if schnorr:
+        checks["verdicts_as_signed"] = bool(got.all())
+        checks["msm_launched"] = svc["launches"].get("msm", 0) > 0
+    else:
+        checks["oracle_every_lane"] = sample == len(recs)
+        checks["bad_lanes_false"] = int((~got).sum()) == len(recs) // BAD_EVERY
+    if name == "saturation" and not schnorr:
+        entry = "glv_dev_verify" if kernel == "glv" else "w4_verify_bytes"
+        checks[f"{entry}_at_2048"] = shapes.get((entry, 2048), 0) >= 1
+    return {"kernel": kernel, "level": name, "submitters": submitters,
+            "open_loop": open_loop, "sync": sync, "serviced": svc,
+            "checks": checks}
+
+
+def serving_node_run(chain: str, st: dict, name: str, flags: dict,
+                     block=None) -> dict:
+    """The storm through an in-process Node (-regtest on a copy of the
+    storm's chain, ``flags``) on the card: each NODE_WAVES wave from its
+    threads, each Node.accept_to_mempool under cs_main (the RPC and P2P
+    callers' hold), then the tampered transaction, then the Schnorr set.
+    Counts zeroed just before the first wave, read after the tampered
+    transaction (with each flush's lanes), the Schnorr set's apart. A
+    serviced node then mines one block over its mempool; ``block`` (the
+    serviced node's) is submitted to the node, closed after."""
+    import threading
+
+    from bitcoincashplus_tpu_torch.mempool import MempoolError
+    from bitcoincashplus_tpu_torch.mempool.accept import \
+        accept_latency_quantiles
+    from bitcoincashplus_tpu_torch.node.config import Config
+    from bitcoincashplus_tpu_torch.node.node import Node
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.workload import txstorm
+
+    d = f"{chain}_{name}"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(chain, d)
+    cfg = Config()
+    cfg.args.update(datadir=[d], regtest=["1"])
+    for k, v in flags.items():
+        cfg.args[k] = [str(v)]
+    node = Node(config=cfg)
+    rejects: dict = {}
+    lock = threading.Lock()
+
+    def feed(txs: list, threads: int) -> dict:
+        todo = iter(txs)
+        lat = []
+
+        def work(_i):
+            while True:
+                with lock:
+                    tx = next(todo, None)
+                if tx is None:
+                    return
+                t0 = time.monotonic()
+                try:
+                    with node.cs_main:
+                        node.accept_to_mempool(tx)
+                except MempoolError as e:
+                    with lock:
+                        rejects[tx.txid_hex] = e.reason
+                with lock:
+                    lat.append(time.monotonic() - t0)
+
+        wall = _threads(work, threads)
+        return {"txs": len(txs), "threads": threads, "wall_s": wall,
+                "tx_per_s": len(txs) / wall, "p50_ms": _ms_quantile(lat, 0.5),
+                "p99_ms": _ms_quantile(lat, 0.99)}
+
+    try:
+        out = {"flags": " ".join(f"-{k}={v}" for k, v in flags.items())
+               or "the defaults", "serviced": node.sigservice is not None}
+        _zero_counts()
+        with FlushLog() as flushes:
+            out["waves"] = {w: feed(st[w], threads) for w, threads in NODE_WAVES}
+            out["waves"]["tampered"] = feed([st["tampered"]], 1)
+        counts = _read_counts()
+        out.update(
+            flushes=flushes.summary(),
+            launches={k: v for k, v in counts["launches"].items() if v},
+            launch_shapes=counts["launch_shapes"],
+            fallbacks={**_fallbacks(),
+                       "kat_failures": counts["stats"]["kat_failures"]})
+        schnorr0 = E.STATS.schnorr_cpu_sigs
+        out["waves"]["schnorr"] = feed(st["schnorr"], 1)
+        out["schnorr_oracle_sigs"] = E.STATS.schnorr_cpu_sigs - schnorr0
+        out["accept_quantiles"] = accept_latency_quantiles()
+        out["pool"] = sorted(tx.hex() for tx in node.mempool.entries)
+        out["rejects"] = dict(rejects)
+        if node.sigservice is not None:
+            snap = node.sigservice.snapshot()
+            out["sigservice"] = {k: v for k, v in snap.items()
+                                 if k != "watchdog"}
+            spk = txstorm.chain_key().p2pkh_script()
+            t0 = time.monotonic()
+            (h,) = node.generate_to_script(spk, 1)
+            out["mine_s"] = time.monotonic() - t0
+            out["block"] = node.chainstate.get_block(h)
+            out["pool_after_block"] = len(node.mempool.entries)
+        if block is not None:
+            t0 = time.monotonic()
+            out["submit_block"] = node.submit_block(block)
+            out["submit_s"] = time.monotonic() - t0
+        out["tip"] = node.chainstate.tip().hash.hex()
+        return out
+    finally:
+        node.close()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def serving_node_phase(workdir: str) -> dict:
+    """Phase 5e(b): the storm (workload/txstorm over a storm_chain's
+    fan-out outputs) through a serviced Node (the defaults:
+    -sigservice=on, GLV, backend auto) and a control Node (-sigservice=off
+    -tpu=0), one after the other; the serviced node's block connected on
+    the control node."""
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.workload import txstorm
+
+    chain = os.path.join(workdir, "storm_chain")
+    t0 = time.monotonic()
+    txstorm.storm_chain(chain)
+    st = txstorm.storm(txstorm.spendable(chain), STORM_CHAINS, STORM_SCHNORR,
+                       seed=1307)
+    build_s = time.monotonic() - t0
+    sv = serving_node_run(chain, st, "serviced", {})
+    block = sv.pop("block")
+    ct = serving_node_run(chain, st, "control",
+                          {"sigservice": "off", "tpu": "0"}, block)
+    runs = {"serviced": sv, "control": ct}
+    tampered = st["tampered"].txid_hex
+    every = st["first"] + st["second"] + st["schnorr"]
+    fb = sv["fallbacks"]
+    launched = sv["launches"]
+    checks = {
+        "mempools_equal": sv["pool"] == ct["pool"],
+        "every_good_tx_admitted": sv["pool"] == sorted(
+            tx.txid.hex() for tx in every),
+        "tampered_rejected_on_both": sv["rejects"] == ct["rejects"] == {
+            tampered: "mandatory-script-verify-flag-failed"},
+        "block_connects_on_control": ct["submit_block"] is None,
+        "same_tip": ct["tip"] == block.get_hash().hex() == sv["tip"],
+        "block_drained_the_pool": sv["pool_after_block"] == 0,
+        "no_flush_error": sv["sigservice"]["flush_errors"] == 0,
+        "service_running": sv["sigservice"]["running"],
+        "no_fault_fallback": fb["fault_fallback_sigs"] == 0,
+        "no_kat_failure": fb["kat_failures"] == 0,
+        "no_breaker_fallback": fb["breaker_fallback_calls"] == 0,
+        "cpu_sigs_are_the_under_floor_flushes":
+            fb["cpu_fallback_sigs"] == sv["flushes"]["under_cpu_floor_lanes"],
+        "no_w4_launch": not any(launched.get(k, 0) for k in W4_ENTRIES),
+        "control_no_launch": not ct["launches"],
+        "schnorr_to_the_oracle": sv["schnorr_oracle_sigs"]
+            == 2 * STORM_SCHNORR,
+    }
+    return {"build_s": build_s, "txs": len(every) + 1,
+            "block_txs": len(block.vtx) - 1, "runs": runs, "checks": checks,
+            "cpu_floor": E.CPU_FLOOR}
+
+
+def serving_drill(seed: int = 1350) -> dict:
+    """Phase 5e(d): the GLV entry made unavailable (ops/cuda_build.entry
+    replaced by one that raises KernelUnavailable for glv_dev_verify*):
+    SigService(...).submit(...).result() must raise KernelUnavailable and
+    the service thread die, with no signature verified on the CPU; then
+    the entry restored and a new service's verdicts right again."""
+    import numpy as np
+
+    from bitcoincashplus_tpu_torch.ops import cuda_build
+    from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.serving import SigService
+    from bitcoincashplus_tpu_torch.workload import txstorm
+
+    recs = txstorm.records(16, seed, bad_every=4)
+    real = cuda_build.entry
+
+    def unavailable(name, argtypes):
+        if name.startswith("glv_dev_verify"):
+            raise cuda_build.KernelUnavailable(
+                f"{name}: made unavailable for the drill")
+        return real(name, argtypes)
+
+    _zero_counts()
+    svc = SigService(backend="auto", kernel="glv", **SERVICE_ARGS).start()
+    raised = None
+    cuda_build.entry = unavailable
+    try:
+        try:
+            svc.submit(recs).result()
+        except cuda_build.KernelUnavailable as e:
+            raised = f"{type(e).__name__}: {e}"
+        svc._thread.join(10)
+        dead = not svc.running()
+        errors = svc.stats["flush_errors"]
+    finally:
+        cuda_build.entry = real
+        svc.stop()
+    cpu = E.STATS.cpu_fallback_sigs + E.STATS.fault_fallback_sigs
+    svc = SigService(backend="auto", kernel="glv", **SERVICE_ARGS).start()
+    try:
+        after = svc.submit(recs).result()
+    finally:
+        svc.stop()
+    want = np.array([i % 4 != 3 for i in range(len(recs))])
+    return {"raised": raised, "thread_dead": dead, "flush_errors": errors,
+            "checks": {"raised": raised is not None, "thread_dead": dead,
+                       "one_flush_error": errors == 1,
+                       "nothing_on_the_cpu": cpu == 0,
+                       "restored_verdicts": bool(np.array_equal(after, want))}}
+
+
+def serving_phase(workdir: str) -> dict:
+    """Phase 5e: the live-traffic path on the card. (a) the service
+    levels under glv and w4, the Schnorr levels under msm, each beside its
+    synchronous control; (b) the node's storm; (d) the drill. Each part's
+    wall is logged; (c) runs inside the daemon phase."""
+    t0 = time.monotonic()
+    levels = []
+    for k, kernel in enumerate(("glv", "w4", "msm")):
+        for i, level in enumerate(SERVING_LEVELS):
+            if kernel == "msm" and level[0] not in SCHNORR_LEVELS:
+                continue
+            levels.append(serving_level(kernel, level, 1310 + 10 * k + i))
+    t1 = time.monotonic()
+    node = serving_node_phase(workdir)
+    t2 = time.monotonic()
+    drill = serving_drill()
+    return {"levels": levels, "node": node, "drill": drill,
+            "walls_s": {"levels": t1 - t0, "node": t2 - t1,
+                        "drill": time.monotonic() - t2}}
+
+
+def serving_report(sv: dict, cases: dict, msm_rows: list) -> None:
+    """Log phase 5e's results and fail on any of its checks. The card's
+    busy time of a level is estimated as each launch shape's count x its
+    time measured in phases 2 and 2c (``cases``, ``msm_rows``)."""
+    def launched_ms(shapes) -> float:
+        return sum(n * next(r["ms"] for r in (
+            msm_rows if name == "msm" else cases[name])
+            if r.get("M", r.get("B")) == B) for name, B, n in shapes)
+
+    failed = []
+    for row in sv["levels"]:
+        sy, se = row["sync"], row["serviced"]
+        se["kernel_ms_est"] = launched_ms(se["launch_shapes"])
+        se["busy_share_est"] = se["kernel_ms_est"] / 1e3 / se["wall_s"]
+        log(f"serving {row['kernel']} {row['level']} ({se['txs']} txs, "
+            f"{row['submitters']} submitter(s), "
+            f"{'open' if row['open_loop'] else 'closed'} loop): serviced "
+            f"{se['tx_per_s']:.1f} tx/s, p50 {se['p50_ms']:.3f} ms, p99 "
+            f"{se['p99_ms']:.3f} ms; synchronous control ({SYNC_WORKERS} "
+            f"workers, {sy['txs']} txs) {sy['tx_per_s']:.1f} tx/s, p50 "
+            f"{sy['p50_ms']:.3f} ms, p99 {sy['p99_ms']:.3f} ms; flushes "
+            f"{se['flushes']} by reason "
+            f"{ {k: v for k, v in se['service'].items() if k.startswith('flush_')} }"
+            f"; launches {se['launch_shapes']} (the card busy about "
+            f"{se['kernel_ms_est']:.3f} ms = {100 * se['busy_share_est']:.2f}% "
+            f"of the wall); fallbacks {se['fallbacks']}; stats {se['stats']}")
+        failed += [f"serving {row['kernel']} {row['level']}: {k}"
+                   for k, v in row["checks"].items() if not v]
+    node = sv["node"]
+    for name, run in node["runs"].items():
+        log(f"serving node {name} ({run['flags']}): waves "
+            f"{json.dumps(run['waves'])}; accept quantiles "
+            f"{run['accept_quantiles']}; flushes {run['flushes']}; launches "
+            f"{run['launch_shapes']}; fallbacks {run['fallbacks']}; "
+            f"{len(run['pool'])} txs in the pool; rejects {run['rejects']}"
+            + (f"; sigservice {json.dumps(run['sigservice'])}; mined one "
+               f"block of {node['block_txs']} txs in {run['mine_s']:.3f} s"
+               if "sigservice" in run else
+               f"; the serviced node's block: {run['submit_block']} in "
+               f"{run['submit_s']:.3f} s"))
+    failed += [f"serving node: {k}" for k, v in node["checks"].items()
+               if not v]
+    log(f"serving drill: {json.dumps(sv['drill'])}")
+    failed += [f"serving drill: {k}" for k, v in sv["drill"]["checks"].items()
+               if not v]
+    log(f"serving: storm built in {node['build_s']:.1f} s; phase walls "
+        f"{ {k: round(v, 1) for k, v in sv['walls_s'].items()} } s")
+    if failed:
+        raise AssertionError(f"serving checks failed: {failed}")
+
+
+def daemon_storm(rpc, port: int, datadir: str, timeout: float) -> dict:
+    """Phase 8's live traffic: three mature coinbases of the chain (they
+    pay workload/sigchain's key) fanned out into 44 outputs each by
+    sendrawtransaction and mined (generatetoaddress 1), then
+    DAEMON_STORM_TXS 2-input transactions spending them sent to
+    sendrawtransaction from DAEMON_CLIENTS client threads (a client
+    each: the server answers each connection on a thread of its own);
+    gettpuinfo's serving section and fallback counters before and
+    after."""
+    import threading
+
+    from bitcoincashplus_tpu_torch.consensus.block import CBlock
+    from bitcoincashplus_tpu_torch.consensus.tx import COutPoint
+    from bitcoincashplus_tpu_torch.rpc.client import RPCClient
+    from bitcoincashplus_tpu_torch.workload import txstorm
+
+    spk = txstorm.chain_key().p2pkh_script()
+    height = rpc.getblockcount()
+    coinbases = []
+    for h in range(1, height + 2 - 100):
+        cb = CBlock.from_bytes(bytes.fromhex(
+            rpc.getblock(rpc.getblockhash(h), 0))).vtx[0]
+        if cb.vout[0].script_pubkey == spk and \
+                rpc.gettxout(cb.txid_hex, 0) is not None:
+            coinbases.append((COutPoint(cb.txid, 0), cb.vout[0].value))
+        if len(coinbases) == 3:
+            break
+    if len(coinbases) < 3:
+        raise AssertionError(f"{len(coinbases)} mature coinbases of the "
+                             f"chain's key unspent at height {height}")
+    fans = [txstorm.spend([cb], n_out=44) for cb in coinbases]
+    for tx in fans:
+        rpc.sendrawtransaction(tx.serialize().hex())
+    rpc.generatetoaddress(1, rpc.getnewaddress())
+    outs = [o for tx in fans for o in txstorm.outputs_of(tx)]
+    txs = [txstorm.spend(outs[2 * i:2 * i + 2])
+           for i in range(DAEMON_STORM_TXS)]
+
+    def counters() -> dict:
+        info = rpc.gettpuinfo()
+        return {"serving": {k: v for k, v in info["serving"].items()
+                            if k != "watchdog"},
+                "cpu_fallback_sigs": info["batch"]["cpu_fallback_sigs"],
+                "fault_fallback_sigs": info["batch"]["fault_fallback_sigs"],
+                "breaker_fallback_calls": sum(
+                    b["fallback_calls"] for b in info["breakers"].values())}
+
+    before = counters()
+    answers, lat = {}, []
+    lock = threading.Lock()
+
+    def work(i):
+        client = RPCClient(port=port, datadir=os.path.join(datadir, "regtest"),
+                           timeout=timeout)
+        for tx in txs[i::DAEMON_CLIENTS]:
+            t0 = time.monotonic()
+            got = client.sendrawtransaction(tx.serialize().hex())
+            with lock:
+                lat.append(time.monotonic() - t0)
+                answers[tx.txid_hex] = got
+
+    wall = _threads(work, DAEMON_CLIENTS)
+    after = counters()
+    pool = set(rpc.getrawmempool())
+    sv0, sv1 = before["serving"], after["serving"]
+    delta = {k: sv1[k] - sv0[k] for k in (
+        "submits", "lanes_enqueued", "dispatches", "lanes_real", "flush_full",
+        "flush_deadline", "flush_kick", "flush_stop", "flush_errors",
+        "overlapped_flushes", "deadline_misses", "timeouts")}
+    checks = {
+        "every_tx_answered_with_its_txid": len(answers) == len(txs) and all(
+            answers.get(tx.txid_hex) == tx.txid_hex for tx in txs),
+        "every_tx_in_the_mempool": {tx.txid_hex for tx in txs} <= pool,
+        "service_flushed": delta.get("dispatches", 0) >= 1,
+        "storm_no_flush_error": sv1["flush_errors"] == 0,
+        "storm_no_fault_fallback": after["fault_fallback_sigs"] == 0,
+        "storm_no_breaker_fallback": after["breaker_fallback_calls"] == 0,
+    }
+    return {"txs": len(txs), "clients": DAEMON_CLIENTS, "wall_s": wall,
+            "tx_per_s": len(txs) / wall,
+            "p50_ms": _ms_quantile(lat, 0.5), "p99_ms": _ms_quantile(lat, 0.99),
+            "serving_delta": delta, "serving": sv1,
+            "cpu_fallback_sigs_delta": after["cpu_fallback_sigs"]
+            - before["cpu_fallback_sigs"], "checks": checks}
+
+
 # ---- the sharded paths (K13) ---------------------------------------------------
 
 # the sharded signature batch: dispatch_packed's slice, one 8192-lane bucket
@@ -4170,6 +4806,16 @@ def shard_msm_phase(clock_hz: float, sizes=SHARD_MSM, seed: int = 1400,
                 f"{key} no fallback": not any(_fallbacks().values())})
     packed = E._msm_pack(terms4, per * 4)
     wave["M"] = per * 4
+    # the bound of the batch: each shard's fewer IMADs of msm_work's two
+    # schedules and its bytes; all four shards' over one card, and the
+    # largest shard's over its own card (the four-card call)
+    shard_work = [msm_work(packed[3][c * per:(c + 1) * per],
+                           packed[2][c * per:(c + 1) * per])
+                  for c in range(4)]
+    imads4 = [min(w["imads"], w["horner"]["imads"]) for w in shard_work]
+    shard_bytes = per * (3 * 32 + 1) + 4 * S.MSM_WORDS
+    wave["bound_one_card"] = bound(sum(imads4), 4 * shard_bytes, clock_hz)
+    wave["bound_each_card"] = bound(max(imads4), shard_bytes, clock_hz)
     for lname, lay in lays4.items():
         wave["ms"][lname] = wall_ms(lambda lay=lay: sig_shard._sharded_msm(
             *packed, devices=lay), dev, reps)
@@ -4492,6 +5138,9 @@ def daemon_phase(chain_dir: str, tips: tuple, record: dict,
                 b["fallback_calls"] for b in tpu["breakers"].values())}
         checks["no fallback after"] = not on_card or not any(
             out["fallbacks_after"].values())
+        # the live-traffic path over RPC (phase 5e(c))
+        out["storm"] = daemon_storm(rpc, rpc_port, base, timeout)
+        checks.update(out["storm"]["checks"])
         rpc.stop()
         rc = proc.wait(timeout)
         out["exit_code"] = rc
@@ -4557,7 +5206,9 @@ def shard_phases(clock_hz: float, ops_exact: int) -> tuple:
     w = sm["four_waves"]
     log(f"sharded_msm four waves ({w['terms']} terms, bucket {w['M']}): "
         f"call wall {', '.join(f'{k} {v:.3f}' for k, v in w['ms'].items())}"
-        f" ms")
+        f" ms; bound {w['bound_one_card']['bound_ms']:.4f} ms on one card "
+        f"({w['bound_one_card']['bound_by']}), "
+        f"{w['bound_each_card']['bound_ms']:.4f} ms with a shard a card")
     for lname, p in w["parts"].items():
         log(f"sharded_msm four waves breakdown at {lname} "
             f"(msm_is_infinity_sharded; ms, medians): {parts_text(p)}")
@@ -5014,6 +5665,14 @@ def main() -> int:
         shutil.copytree(workdir, ddir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    # 5e. the live-traffic path: mempool admission through the signature
+    # service (counts zeroed inside, just before each run; results below)
+    sdir = os.path.join(REPO, "build", "smoke_serving")
+    shutil.rmtree(sdir, ignore_errors=True)
+    try:
+        sv = serving_phase(sdir)
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
     log(f"slice: {json.dumps(sl, sort_keys=True)}")
     failed = []
     for i, run in enumerate(sl["runs"]):
@@ -5047,6 +5706,12 @@ def main() -> int:
             path_launches[name] += n
         for name, B, count in run["launch_shapes"]:
             path_shapes[name][B] = path_shapes[name].get(B, 0) + count
+    # the serving path's launches (phase 5e: the levels and the node)
+    for run in [row["serviced"] for row in sv["levels"]] + [
+            sv["node"]["runs"]["serviced"]]:
+        for name, B, count in run["launch_shapes"]:
+            path_launches[name] += count
+            path_shapes[name][B] = path_shapes[name].get(B, 0) + count
     for name, shapes in path_shapes.items():
         for B in shapes:
             if name in cases and all(r["B"] != B for r in cases[name]):
@@ -5073,6 +5738,9 @@ def main() -> int:
     failed = [k for k, v in nd["checks"].items() if not v]
     if failed:
         raise AssertionError(f"node -reindex checks failed: {failed}")
+
+    # 5e. the live-traffic path (run after phase 5d, above): its results
+    serving_report(sv, cases, msm_rows)
 
     # 5b. the validation path with big blocks (the device Merkle leg)
     bdir = os.path.join(REPO, "build", "smoke_bigchain")
@@ -5339,7 +6007,8 @@ def main() -> int:
     # chain's runs, the dispatch sizes, the drills), the partial entry's
     # on the sharded MSM's calls (phase 7b); each at the chain's bucket
     msm_launches = sum(run["launches"]["msm"] for run in mc["runs"]) + sum(
-        row["launches"]["msm"] for row in md.values())
+        row["launches"]["msm"] for row in md.values()) + sum(
+        row["serviced"]["launches"].get("msm", 0) for row in sv["levels"])
     msm_main = next(r for r in msm_rows if r["M"] == 4096)
     partial_launches = sum(n for x in sm["runs"]
                            for _e, _M, n in x["launch_shapes"])

@@ -177,7 +177,8 @@ def test_cuda_without_a_card_raises_and_is_never_degraded():
         pytest.skip("this host has a CUDA card")
     ours, _ = make_records(6, 9)
     E.set_device("cuda")
-    assert not E._device_available()
+    # CUDA selected: the device is the one to dispatch to, card or not
+    assert E._device_available()
     with pytest.raises(S.KernelUnavailable):
         E.dispatch_batch(ours, backend="device")
     pub, rs, msg, rn, wrap = E.records_to_blobs(ours)
@@ -185,9 +186,17 @@ def test_cuda_without_a_card_raises_and_is_never_degraded():
         E.dispatch_packed(pub, rs, msg, rn, wrap, backend="device")
     assert E.STATS.fault_fallback_sigs == 0
     assert E.STATS.cpu_fallback_sigs == 0
-    # "auto" sees no device and takes the CPU engine on purpose
-    assert E.verify_batch(ours, backend="auto").tolist() == [
-        oracle.ecdsa_verify(r.pubkey, r.r, r.s, r.msg_hash) for r in ours]
+    # "auto" keeps a batch under CPU_FLOOR on the CPU engine by design
+    few = ours[:E.CPU_FLOOR - 1]
+    assert E.verify_batch(few, backend="auto").tolist() == [
+        oracle.ecdsa_verify(r.pubkey, r.r, r.s, r.msg_hash) for r in few]
+    assert E.STATS.cpu_fallback_sigs == len(few)
+    # from CPU_FLOOR on, "auto" takes the device leg, which raises
+    for n in (E.CPU_FLOOR, len(ours)):
+        with pytest.raises(S.KernelUnavailable):
+            E.verify_batch(ours[:n], backend="auto")
+    assert E.STATS.fault_fallback_sigs == 0
+    assert E.STATS.cpu_fallback_sigs == len(few)
 
 
 def test_kernel_unavailable_is_not_a_dispatch_failure(monkeypatch):

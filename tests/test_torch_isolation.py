@@ -146,6 +146,53 @@ def _device_switch(src: str) -> str:
     return src
 
 
+def _replacing(*pairs):
+    """A listed difference made of exact replacements, each found once."""
+    def apply(code: str) -> str:
+        for old, new in pairs:
+            assert code.count(old) == 1, old
+            code = code.replace(old, new)
+        return code
+    return apply
+
+
+# a kernel that cannot be built or launched must surface to the service's
+# callers, not degrade to the caller-side CPU re-verify like a transient
+# flush failure: the settle re-raises it (the thread dies, its other
+# in-flight lanes carry it, later submits flush inline and raise), and
+# TxSigFuture.result() raises it for a lane that carries it
+_SIGSERVICE_RAISES_KERNEL_UNAVAILABLE = _replacing(
+    ("dropped or fabricated, and ``-sigservice=off`` is byte-identical by\n"
+     "construction (the callers run the unchanged synchronous path).\n",
+     "dropped or fabricated, and ``-sigservice=off`` is byte-identical by\n"
+     "construction (the callers run the unchanged synchronous path). A "
+     "kernel\nthat cannot be built or launched (KernelUnavailable) is not "
+     "degraded: it\nraises to every waiter of the flush, and the service "
+     "thread dies with it.\n"),
+    ("        eventual block connect still gets its cache hit.\"\"\"\n",
+     "        eventual block connect still gets its cache hit. A lane whose\n"
+     "        flush met a kernel that cannot be built or launched\n"
+     "        (KernelUnavailable) raises it here instead: that is never\n"
+     "        degraded to the CPU.\"\"\"\n"),
+    ("            elif src.err is not None or not src.settled():\n",
+     "            elif isinstance(src.err, ecdsa_batch.KernelUnavailable):\n"
+     "                raise src.err  # a missing kernel surfaces, not "
+     "degrades\n"
+     "            elif src.err is not None or not src.settled():\n"),
+    ("            # NOW — waiters must fail fast to their CPU re-verify, not\n"
+     "            # sit out the full result timeout on a dead thread.\n",
+     "            # NOW — waiters must fail fast to their CPU re-verify (or, "
+     "for\n            # a KernelUnavailable, raise it), not sit out the "
+     "full result\n            # timeout on a dead thread.\n"),
+    ("                                UnboundLocalError)):\n"
+     "                raise err  # programming errors must surface, not "
+     "degrade\n",
+     "                                UnboundLocalError,\n"
+     "                                ecdsa_batch.KernelUnavailable)):\n"
+     "                raise err  # programming errors, missing kernel "
+     "surface\n"))
+
+
 # Not in HOST_COPIES, being the port's own: ops/dispatch.py (its
 # supervised_call is pinned function by function below),
 # mining/resident.py (a CUDA stream of segments in place of JAX async
@@ -153,6 +200,7 @@ def _device_switch(src: str) -> str:
 # entry points pinned function by function below).
 DIFFERENCES = {
     "validation/scriptcheck": _reraise_kernel_unavailable,
+    "serving/sigservice": _SIGSERVICE_RAISES_KERNEL_UNAVAILABLE,
     "node/node": _no_jax_platform_pin,
     "rpc/control": _torch_rpc_control,
     "cli/bcpd": _device_switch,
@@ -233,16 +281,6 @@ def _no_pallas_latch(code: str) -> str:
     old = "return not _PALLAS_BROKEN and "
     assert code.count(old) == 1
     return code.replace(old, "return ")
-
-
-def _replacing(*pairs):
-    """A listed difference made of exact replacements, each found once."""
-    def apply(code: str) -> str:
-        for old, new in pairs:
-            assert code.count(old) == 1, old
-            code = code.replace(old, new)
-        return code
-    return apply
 
 
 # the sharded entry points: a layout (devices=) in place of the mesh, and
@@ -451,6 +489,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import bitcoincashplus_tpu_torch.validation.chainstate\n"
         "import bitcoincashplus_tpu_torch.ops.ecdsa_batch\n"
         "import bitcoincashplus_tpu_torch.workload.sigchain\n"
+        "import bitcoincashplus_tpu_torch.workload.txstorm\n"
         "import bitcoincashplus_tpu_torch.mining.generate\n"
         "import bitcoincashplus_tpu_torch.mining.resident\n"
         "import bitcoincashplus_tpu_torch.ops.merkle\n"

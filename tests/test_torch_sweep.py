@@ -135,6 +135,45 @@ def test_h7_and_digest_per_nonce_match_jax_and_hashlib(seed):
                                                  for j in range(8)] == words
 
 
+@pytest.mark.parametrize("seed", [21, 22])
+def test_unhoisted_forms_match_the_jax_package_on_numpy(seed, monkeypatch):
+    """header_sweep_digest (ops/sha256) and sweep_h7 (ops/sha256_sweep),
+    the reference's unhoisted forms, bit-equal at 64 nonces to the JAX
+    package's run eagerly on numpy (BCP_SHA_UNROLL=1: its unrolled
+    compression, numpy arithmetic, no XLA program) and to hashlib."""
+    from bitcoincashplus_tpu.ops import sha256 as jsha
+
+    from bitcoincashplus_tpu_torch.ops import sha256 as SH
+
+    monkeypatch.setenv("BCP_SHA_UNROLL", "1")
+    rng = np.random.default_rng(seed)
+    header = rng.integers(0, 256, size=80, dtype=np.uint8).tobytes()
+    mid, tail = _parts(header)
+    nonces = rng.integers(0, 2**32, size=64, dtype=np.uint32)
+    nonces[:2] = (0, 2**32 - 1)
+    tn = torch.from_numpy(nonces.astype(np.int64))
+    ours8 = SH.header_sweep_digest([int(m) for m in mid],
+                                   [int(t) for t in tail], tn)
+    ours7 = SW.sweep_h7(mid, tail, tn)
+    theirs8 = jsha.header_sweep_digest(list(mid), list(tail), nonces)
+    theirs7 = jsw.sweep_h7(list(mid), list(tail), nonces)
+    assert all(isinstance(x, np.ndarray) for x in theirs8 + [theirs7])
+    assert [x.tolist() for x in ours8] == [
+        np.asarray(x, dtype=np.int64).tolist() for x in theirs8]
+    assert ours7.tolist() == np.asarray(theirs7, dtype=np.int64).tolist()
+    for i, n in enumerate(nonces):
+        dig = hashlib.sha256(hashlib.sha256(
+            header[:76] + int(n).to_bytes(4, "little")).digest()).digest()
+        words = [int.from_bytes(dig[4 * j:4 * j + 4], "big") for j in range(8)]
+        assert [int(x[i]) for x in ours8] == words
+        assert int(ours7[i]) == words[7]
+    # the hoisted forms the sweeps run agree with the unhoisted ones
+    pre = SW.hoist_template(mid, tail)
+    assert [x.tolist() for x in SW.sweep_digest_hoisted(pre, tn)] == [
+        x.tolist() for x in ours8]
+    assert SW.sweep_h7_hoisted(pre, tn).tolist() == ours7.tolist()
+
+
 def test_template_matches_the_jax_hoist_and_round_trips():
     rng = np.random.default_rng(11)
     for _ in range(4):
