@@ -283,8 +283,8 @@ def test_service_matches_the_jax_package_service():
 @pytest.fixture(scope="module")
 def storm_chain(tmp_path_factory):
     """A sigchain chain with the fan-out's outputs left (txstorm's
-    storm_chain), and a storm over 64 of them: 6 chains, 2 Schnorr
-    transactions, the tampered one, 17 independent."""
+    storm_chain), and a storm over 64 of them: 6 parent -> child chains,
+    2 Schnorr transactions, the tampered one, 23 independent (38 in all)."""
     d = str(tmp_path_factory.mktemp("storm") / "chain")
     txstorm.storm_chain(d)
     outs = txstorm.spendable(d)
