@@ -430,6 +430,16 @@ class SigService:
                             lane.err = e
                         self._by_key.pop(lane.key, None)
                 self._inflight.clear()
+                if isinstance(e, ecdsa_batch.KernelUnavailable):
+                    # lanes still queued behind the failed flush carry it
+                    # too, and running() is False from here, so a later
+                    # submit flushes inline and raises it
+                    for lane in self._pending:
+                        lane.err = e
+                        self._by_key.pop(lane.key, None)
+                    self._pending.clear()
+                    _QUEUE_G.set(0)
+                    self._thread = None
                 self._cond.notify_all()
             log_printf("sigservice thread died: %s: %s — submissions "
                        "degrade to inline synchronous dispatch",

@@ -3684,9 +3684,11 @@ BAD_EVERY = 64          # every 64th ECDSA record checks a message it did not si
 # (about 0.26 s a signature on the card's host), so the closed-loop
 # levels, whose flushes are a few lanes, a forged lane (its bisection
 # leaf: 8 oracle verifies) and a control over every transaction would
-# time the oracle: msm runs the saturation level on valid signatures
-# (phase 5c holds a forged lane's bisection), and its control is a sample
-# of this many transactions
+# time the oracle: msm runs the saturation level on valid signatures, and
+# its control is a sample of this many transactions; after the timed run,
+# untimed, the same signatures with one forged go through the same service
+# in one flush (2 x 2,000 + 1 terms: the 4,096-term MSM), and exactly that
+# lane must come back False
 SCHNORR_LEVELS = ("saturation",)
 SCHNORR_SYNC_TXS = 8
 STORM_CHAINS = 100      # parent -> child chains in the node's storm
@@ -3701,7 +3703,9 @@ class FlushLog:
     with block: ops/ecdsa_batch.dispatch_batch wrapped (the service calls
     it through the module), recording the calls made on the service's
     thread ("sigservice"; the flushes here hold one algorithm each, so
-    dispatch_batch does not call itself)."""
+    dispatch_batch does not call itself). It relies on the service's
+    thread name and on the service calling dispatch_batch as a module
+    attribute; a flush made inline on a submitter is not seen."""
 
     def __enter__(self):
         import threading
@@ -3802,12 +3806,14 @@ def sync_control(txs: list, workers: int = SYNC_WORKERS) -> dict:
 
 
 def serviced_run(txs: list, kernel: str, submitters: int,
-                 open_loop: bool) -> dict:
+                 open_loop: bool, probe: list = None) -> dict:
     """The same transactions through a SigService at the node's settings
     (backend "auto", SERVICE_ARGS) under ``kernel``: each submitter a
     closed loop (submit, await) or, open loop, the whole share submitted,
     then awaited; counts zeroed just before the first submit and read
-    after the last verdict, with each flush's lanes (FlushLog)."""
+    after the last verdict, with each flush's lanes (FlushLog). Then,
+    untimed and counted apart, the records ``probe`` (if given) in one
+    submit through the same service: their verdicts and launch shapes."""
     import numpy as np
 
     from bitcoincashplus_tpu_torch.serving import SigService
@@ -3838,9 +3844,19 @@ def serviced_run(txs: list, kernel: str, submitters: int,
                      "kat_failures": counts["stats"]["kat_failures"]}
         stats = dict(svc.stats)
         running = svc.running()
+        if probe is not None:
+            _zero_counts()
+            probe_got = svc.submit(probe).result()
+            probe_counts = _read_counts()
     finally:
         svc.stop()
     st = counts["stats"]
+    extra = {} if probe is None else {
+        "probe": {"verdicts": probe_got,
+                  "launch_shapes": probe_counts["launch_shapes"],
+                  "msm_bisects": probe_counts["stats"]["msm_bisects"],
+                  "flush_errors": svc.stats["flush_errors"]
+                  - stats["flush_errors"]}}
     return {"txs": len(txs), "wall_s": wall, "tx_per_s": len(txs) / wall,
             "p50_ms": _ms_quantile(lat, 0.5), "p99_ms": _ms_quantile(lat, 0.99),
             "verdicts": np.concatenate(out), "running": running,
@@ -3853,7 +3869,8 @@ def serviced_run(txs: list, kernel: str, submitters: int,
                                          "reject_confirm_sigs",
                                          "degenerate_rechecks",
                                          "schnorr_cpu_sigs", "msm_bisects",
-                                         "device_seconds", "buckets_used")}}
+                                         "device_seconds", "buckets_used")},
+            **extra}
 
 
 def serving_level(kernel: str, level: tuple, seed: int) -> dict:
@@ -3861,14 +3878,18 @@ def serving_level(kernel: str, level: tuple, seed: int) -> dict:
     a bad lane every BAD_EVERY, or valid Schnorr signatures), the
     synchronous control and the serviced run. The checks: every verdict
     the host oracle's (the control's; for Schnorr the oracle's on the
-    control's sample, and True, as signed, elsewhere), no flush error,
-    fault fallback, KAT failure or breaker fallback, the CPU engine's
+    control's sample, and True, as signed, elsewhere; then the forged
+    probe's lane False and every other True, through a 4,096-term MSM
+    launch), no flush error, fault fallback, KAT failure or breaker
+    fallback, the CPU engine's
     signatures exactly the lanes of the flushes under CPU_FLOOR, the
     service alive, each expected kernel launched (K9 under msm; at
     saturation a 2,048-lane launch under glv and w4)."""
     import numpy as np
 
+    from bitcoincashplus_tpu_torch.crypto import secp256k1 as oracle
     from bitcoincashplus_tpu_torch.ops import ecdsa_batch as E
+    from bitcoincashplus_tpu_torch.script.interpreter import SigCheckRecord
     from bitcoincashplus_tpu_torch.workload import txstorm
 
     name, n_txs, submitters, open_loop = level
@@ -3877,7 +3898,18 @@ def serving_level(kernel: str, level: tuple, seed: int) -> dict:
                            bad_every=0 if schnorr else BAD_EVERY)
     txs = [recs[i:i + 2] for i in range(0, len(recs), 2)]
     sync = sync_control(txs[:SCHNORR_SYNC_TXS] if schnorr else txs)
-    svc = serviced_run(txs, kernel, submitters, open_loop)
+    probe = forged = None
+    if schnorr:
+        # the level's signatures again (the service here keeps no
+        # sigcache, so none is a hit), one of them over a message it did
+        # not sign
+        forged = len(recs) // 2 + 1
+        r = recs[forged]
+        probe = list(recs)
+        probe[forged] = SigCheckRecord(r.pubkey, r.r, r.s,
+                                       (r.msg_hash + 1) % oracle.N,
+                                       algo="schnorr")
+    svc = serviced_run(txs, kernel, submitters, open_loop, probe)
     got, oracle = svc.pop("verdicts"), sync.pop("verdicts")
     sample = len(oracle)
     shapes = {(k, B): n for k, B, n in svc["launch_shapes"]}
@@ -3898,6 +3930,16 @@ def serving_level(kernel: str, level: tuple, seed: int) -> dict:
     if schnorr:
         checks["verdicts_as_signed"] = bool(got.all())
         checks["msm_launched"] = svc["launches"].get("msm", 0) > 0
+        pr = svc.pop("probe")
+        pgot = pr.pop("verdicts")
+        pr["forged_lane"] = forged
+        checks["probe_false_at_the_forged_lane_only"] = bool(
+            not pgot[forged] and int(pgot.sum()) == len(probe) - 1)
+        checks["probe_msm_at_4096"] = any(
+            k == "msm" and B == 4096 and n >= 1
+            for k, B, n in pr["launch_shapes"])
+        checks["probe_no_flush_error"] = pr["flush_errors"] == 0
+        svc["probe"] = pr
     else:
         checks["oracle_every_lane"] = sample == len(recs)
         checks["bad_lanes_false"] = int((~got).sum()) == len(recs) // BAD_EVERY
@@ -4080,15 +4122,15 @@ def serving_drill(seed: int = 1350) -> dict:
 
     _zero_counts()
     svc = SigService(backend="auto", kernel="glv", **SERVICE_ARGS).start()
-    raised = None
+    thread, raised = svc._thread, None
     cuda_build.entry = unavailable
     try:
         try:
             svc.submit(recs).result()
         except cuda_build.KernelUnavailable as e:
             raised = f"{type(e).__name__}: {e}"
-        svc._thread.join(10)
-        dead = not svc.running()
+        thread.join(10)
+        dead = not thread.is_alive() and not svc.running()
         errors = svc.stats["flush_errors"]
     finally:
         cuda_build.entry = real

@@ -159,7 +159,8 @@ def _replacing(*pairs):
 # a kernel that cannot be built or launched must surface to the service's
 # callers, not degrade to the caller-side CPU re-verify like a transient
 # flush failure: the settle re-raises it (the thread dies, its other
-# in-flight lanes carry it, later submits flush inline and raise), and
+# in-flight lanes and the lanes queued behind them carry it, later
+# submits flush inline and raise), and
 # TxSigFuture.result() raises it for a lane that carries it
 _SIGSERVICE_RAISES_KERNEL_UNAVAILABLE = _replacing(
     ("dropped or fabricated, and ``-sigservice=off`` is byte-identical by\n"
@@ -184,6 +185,22 @@ _SIGSERVICE_RAISES_KERNEL_UNAVAILABLE = _replacing(
      "            # NOW — waiters must fail fast to their CPU re-verify (or, "
      "for\n            # a KernelUnavailable, raise it), not sit out the "
      "full result\n            # timeout on a dead thread.\n"),
+    ("                self._inflight.clear()\n"
+     "                self._cond.notify_all()\n",
+     "                self._inflight.clear()\n"
+     "                if isinstance(e, ecdsa_batch.KernelUnavailable):\n"
+     "                    # lanes still queued behind the failed flush carry "
+     "it\n"
+     "                    # too, and running() is False from here, so a "
+     "later\n"
+     "                    # submit flushes inline and raises it\n"
+     "                    for lane in self._pending:\n"
+     "                        lane.err = e\n"
+     "                        self._by_key.pop(lane.key, None)\n"
+     "                    self._pending.clear()\n"
+     "                    _QUEUE_G.set(0)\n"
+     "                    self._thread = None\n"
+     "                self._cond.notify_all()\n"),
     ("                                UnboundLocalError)):\n"
      "                raise err  # programming errors must surface, not "
      "degrade\n",

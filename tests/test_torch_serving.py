@@ -4,8 +4,9 @@ through it — on the CPU, against the JAX package's service.
 
 - A kernel that cannot be built or launched (KernelUnavailable) reaches
   the service's callers: result() raises, the service thread dies with
-  it, its other in-flight lanes raise too, and a later submit (flushed
-  inline on the caller) raises. It is never re-verified on the CPU.
+  it, its other in-flight lanes and the lanes queued behind them raise
+  too, and a later submit (flushed inline on the caller) raises. It is
+  never re-verified on the CPU.
 - Any other flush error keeps the reference's caller-side CPU re-verify.
 - ``backend="auto"`` with CUDA selected and no card raises from
   CPU_FLOOR records on; below it the CPU engine serves by design.
@@ -24,6 +25,7 @@ on its CPU engine. Tolerance: exact equality (verdicts and keys).
 import os
 import shutil
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -174,6 +176,67 @@ def test_kernel_unavailable_reaches_every_in_flight_flush(monkeypatch):
         both.set()
         svc.stop()
     assert E.STATS.cpu_fallback_sigs == 0
+
+
+def test_kernel_unavailable_reaches_the_lanes_queued_behind_it(monkeypatch):
+    """Both slots in flight (buffers=2) and a third transaction queued
+    behind them, its waiter already parked in result() while the thread
+    lives. The first settle raises KernelUnavailable: the death handler
+    gives the queued lanes the same error, so that waiter raises at once,
+    instead of sitting out its timeout and re-verifying on the CPU; the
+    queued lanes are never dispatched."""
+    go, both = threading.Event(), threading.Event()
+    err = KU("the GLV device-split kernel: launch failed")
+    dispatched = []
+
+    def parked(records, backend="auto", kernel=None):
+        dispatched.append(len(records))
+        if len(dispatched) == 1:
+            assert both.wait(10)
+        return _Parked(go, err)
+
+    monkeypatch.setattr(E, "dispatch_batch", parked)
+    svc = _service(backend="auto", lanes=2, deadline_ms=60_000, buffers=2)
+    got = {}
+
+    def wait_third(fut):
+        t0 = time.monotonic()
+        try:
+            got["verdicts"] = fut.result(timeout=20)
+        except KU as e:
+            got["err"] = e
+        got["seconds"] = time.monotonic() - t0
+
+    try:
+        first = svc.submit(txstorm.records(2, 3))
+        second = svc.submit(txstorm.records(2, 4))
+        both.set()
+        for _ in range(1000):
+            if len(dispatched) == 2:
+                break
+            time.sleep(0.01)
+        assert dispatched == [2, 2]
+        third = svc.submit(txstorm.records(2, 5))
+        waiter = threading.Thread(target=wait_third, args=(third,))
+        waiter.start()
+        time.sleep(0.2)  # the waiter has kicked and sits on the condvar
+        assert svc.running() and len(svc._pending) == 2
+        go.set()
+        for fut in (first, second):
+            with pytest.raises(KU):
+                fut.result(timeout=10)
+        waiter.join(30)
+        assert not waiter.is_alive()
+        assert got.get("err") is err, got
+        assert got["seconds"] < 10
+        assert _dead(svc)
+        assert dispatched == [2, 2] and not svc._pending
+    finally:
+        go.set()
+        both.set()
+        svc.stop()
+    assert E.STATS.cpu_fallback_sigs == 0
+    assert svc.stats["timeouts"] == 0
 
 
 def test_a_transient_flush_error_degrades_to_caller_cpu(monkeypatch):
